@@ -1,0 +1,38 @@
+"""taichi_gaussian_rasterizer_tpu_torch -- PyTorch/CUDA port of
+`taichi_gaussian_rasterizer_tpu`.
+
+The module layout mirrors the JAX package's, so each module's counterpart
+is found under the same name. This first slice is the forward render
+path: project -> SH shading -> tile map -> forward rasterize, with a
+hand-written CUDA kernel (`csrc/raster_forward.cu`, built with nvcc for
+Hopper at first use) for CUDA tensors and its plain PyTorch version for
+CPU tensors. Imports torch, never jax.
+"""
+
+__version__ = "0.1.0"
+
+from .config import RasterConfig
+from .data_types import Gaussians2D, Gaussians3D, check_packed2d
+from .ops import CameraParams, evaluate_sh_at, project_points, project_to_image
+from .ops.mapper import TileMapping, map_to_tiles
+from .ops.raster import RasterOut, rasterize, rasterize_with_tiles
+from .models import Rendering, render_gaussians, render_projected
+
+__all__ = [
+    "RasterConfig",
+    "Gaussians3D",
+    "Gaussians2D",
+    "check_packed2d",
+    "CameraParams",
+    "project_to_image",
+    "project_points",
+    "evaluate_sh_at",
+    "TileMapping",
+    "map_to_tiles",
+    "RasterOut",
+    "rasterize",
+    "rasterize_with_tiles",
+    "Rendering",
+    "render_gaussians",
+    "render_projected",
+]

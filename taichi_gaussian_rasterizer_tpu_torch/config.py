@@ -1,0 +1,67 @@
+"""Raster configuration (PyTorch/CUDA port of `taichi_gaussian_rasterizer_tpu.config`).
+
+Same frozen dataclass, same fields and defaults, so a config written for
+the JAX package means the same thing here. Fields that exist only to
+shape the TPU kernels or XLA's static shapes are kept, so that configs
+carry over unchanged, and have no effect in this package:
+
+* ``points_per_chunk`` -- the TPU kernels stage this many gaussians per
+  VMEM chunk. The CUDA forward kernel stages one batch of
+  ``tile_size**2`` gaussians per thread block instead.
+* ``saturation_early_exit`` -- the CUDA kernel always stops a tile once
+  every pixel has saturated; the blend gates make that exit exact, so
+  the output is the same either way.
+* ``exact_features`` -- the port never packs features as bf16 pairs;
+  features are always blended at full precision.
+* ``exact_slot_gradients`` -- concerns the backward kernel, which this
+  package does not have yet (ROADMAP queue 2 item 2).
+* ``deterministic`` -- the port's mapper always sorts stably, so ties
+  in (tile, depth) always blend in a reproducible order.
+
+``max_tile_span`` is honoured with the JAX mapper's clamp-and-flag
+semantics, so overlap sets match it. ``compute_visibility`` and
+``compute_point_heuristic`` are not ported yet: the rasterizer raises
+`NotImplementedError` when either is set.
+"""
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True, eq=True, kw_only=True)
+class RasterConfig:
+  tile_size: int = 16
+
+  # clamp position to within this margin of the image for the affine Jacobian
+  clamp_margin: float = 0.15
+
+  # use the analytic antialiased (box-integrated) gaussian pdf
+  antialias: bool = False
+
+  # add blur_cov * I to the projected 2D covariance
+  blur_cov: float = 0.3
+
+  clamp_max_alpha: float = 0.99
+  alpha_threshold: float = 1.0 / 255.0
+
+  # stop alpha blending once accumulated weight reaches this
+  saturate_threshold: float = 0.9999
+
+  # if False, output the feature of the point crossing (1 - saturate_threshold)
+  # accumulated weight (quantile/median filter)
+  use_alpha_blending: bool = True
+
+  compute_point_heuristic: bool = False  # implies compute_visibility
+  compute_visibility: bool = False
+
+  # cap on per-gaussian tile footprint: larger footprints are clamped and
+  # flag TileMapping.overflow
+  max_tile_span: int = 16
+  # no effect in this package (see the module docstring)
+  points_per_chunk: int = 128
+  saturation_early_exit: bool = True
+  exact_slot_gradients: bool = False
+  deterministic: bool = False
+  exact_features: bool = False
+
+  def replace(self, **kwargs) -> "RasterConfig":
+    return replace(self, **kwargs)

@@ -1,0 +1,237 @@
+// Forward tile rasterizer for Hopper (sm_90a): front-to-back alpha blend of
+// each tile's depth-sorted gaussians.
+//
+// Replaces the TPU kernel taichi_gaussian_rasterizer_tpu/ops/raster/forward.py
+// `_forward_kernel` (launched by `rasterize_tiles_flat`). It computes what
+// that kernel computes for the forward render -- the conic or antialiased
+// pdf, the alpha threshold/clamp gates, the saturation gate, F feature
+// channels plus the weight image, and the non-blending quantile mode -- and
+// none of its TPU workarounds: no flat (tile, chunk) iteration list, no DMA
+// ring, no bf16 feature pairs, no coefficient matmul for the alpha field and
+// no triangular-matmul cumprod. Each pixel runs the sequential blend loop.
+//
+// What bounds it on an H100: the work is one pdf (an expf, or four sigmoids
+// under antialias) plus F+1 FMAs per (pixel, overlapping point) pair, some
+// twenty FP32 operations, and every pair of a pixel depends on the one
+// before through T. Device-memory traffic is small: each overlap's index, 7
+// point floats and F features are read once per tile. At 1M gaussians
+// @2048x1536 (2.7M overlaps, ~0.7G pairs) it takes 1.56 ms on an H100 80GB
+// HBM3 at 700 W, about a tenth of the card's FP32 rate by that count, so
+// neither the arithmetic rate nor memory bounds it; the likely bound (not
+// measured) is the latency of the dependent per-pixel loop at the
+// occupancy its 53-56 registers a thread allow, and the longest bins.
+// Design: one thread block per tile, one thread per pixel; the block stages
+// a batch of blockDim points into shared memory (one global read per point
+// per tile, then broadcast reads by every pixel); a pixel stops once its
+// saturation gate has closed, and the block stops once every pixel has
+// (__syncthreads_count) -- exact, because the gate never reopens.
+//
+// C interface (bound with ctypes; pointers are device pointers):
+//   int tgr_raster_forward(points (N,7) f32, features (N,F) f32,
+//                          overlap_to_point (K,) i32, tile_ranges (T,2) i32,
+//                          num_tiles, tiles_x, tile_size, width, height, F,
+//                          alpha_threshold, clamp_max_alpha,
+//                          saturate_threshold, antialias, blending,
+//                          image (H,W,F) f32 out, weight (H,W) f32 out,
+//                          stream)
+// returns the cudaError_t of the launch (0 on success).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxFeatures = 16;
+constexpr int kPointRows = 7;   // staged floats per point (see stage_point)
+constexpr float kLogAlphaFloor = -1e4f;
+constexpr float kTwoPi = 6.283185307179586f;
+
+__device__ __forceinline__ float approx_cdf(float x, float s) {
+  // sigmoid approximation of the gaussian CDF
+  const float z = x / s;
+  return 1.0f / (1.0f + expf(-(1.6f * z + 0.07f * z * z * z)));
+}
+
+template <bool kAntialias, bool kBlending>
+__global__ void __launch_bounds__(1024)
+raster_forward_kernel(const float* __restrict__ points,
+                      const float* __restrict__ features,
+                      const int* __restrict__ overlap_to_point,
+                      const int* __restrict__ tile_ranges,
+                      int tiles_x, int tile_size, int width, int height,
+                      int num_features, float alpha_threshold,
+                      float clamp_max_alpha, float saturate_threshold,
+                      float* __restrict__ image, float* __restrict__ weight) {
+  extern __shared__ float smem[];
+  const int batch = blockDim.x;
+  float* s_pt = smem;                           // [kPointRows][batch]
+  float* s_feat = smem + kPointRows * batch;    // [num_features][batch]
+
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int tx = tile % tiles_x, ty = tile / tiles_x;
+  const int lx = tid % tile_size, ly = tid / tile_size;
+  const int px = tx * tile_size + lx, py = ty * tile_size + ly;
+  const bool inside = px < width && py < height;
+  const float ox = static_cast<float>(tx * tile_size);
+  const float oy = static_cast<float>(ty * tile_size);
+  // tile-local pixel centre (the JAX kernels' frame)
+  const float cx = lx + 0.5f, cy = ly + 0.5f;
+
+  const int start = tile_ranges[2 * tile];
+  const int end = tile_ranges[2 * tile + 1];
+  // quantile mode emits the point whose accumulated weight crosses c
+  const float c = 1.0f - saturate_threshold;
+  const float stop = kBlending ? saturate_threshold : c;
+
+  float T = 1.0f;
+  float acc[kMaxFeatures];
+#pragma unroll
+  for (int f = 0; f < kMaxFeatures; ++f) acc[f] = 0.0f;
+  float alpha_acc = 0.0f;  // sum of weights, or sum of a * T in quantile mode
+  bool done = !inside;
+
+  for (int base = start; base < end; base += batch) {
+    // also the barrier before the batch buffer is overwritten
+    if (__syncthreads_count(!done) == 0) break;
+    const int count = min(batch, end - base);   // the last batch is short
+
+    if (tid < count) {
+      const int idx = overlap_to_point[base + tid];
+      const float* p = points + static_cast<long long>(idx) * 7;
+      const float mx = p[0] - ox, my = p[1] - oy;
+      const float ax = p[2], ay = p[3], sx = p[4], sy = p[5], pa = p[6];
+      s_pt[0 * batch + tid] = mx;
+      s_pt[1 * batch + tid] = my;
+      if (kAntialias) {
+        s_pt[2 * batch + tid] = ax;
+        s_pt[3 * batch + tid] = ay;
+        s_pt[4 * batch + tid] = sx;
+        s_pt[5 * batch + tid] = sy;
+        s_pt[6 * batch + tid] = pa;
+      } else {
+        // conic form: u^2 + v^2 = d^T Q d, Q = R diag(sx, sy)^-2 R^T
+        const float isx2 = 1.0f / (sx * sx), isy2 = 1.0f / (sy * sy);
+        s_pt[2 * batch + tid] = ax * ax * isx2 + ay * ay * isy2;
+        s_pt[3 * batch + tid] = ax * ay * (isx2 - isy2);
+        s_pt[4 * batch + tid] = ay * ay * isx2 + ax * ax * isy2;
+        s_pt[5 * batch + tid] = fmaxf(logf(fmaxf(pa, 0.0f)), kLogAlphaFloor);
+      }
+      const float* feat = features + static_cast<long long>(idx) * num_features;
+      for (int f = 0; f < num_features; ++f) s_feat[f * batch + tid] = feat[f];
+    }
+    __syncthreads();
+
+    if (done) continue;
+    for (int j = 0; j < count; ++j) {
+      const float dx = cx - s_pt[0 * batch + j];
+      const float dy = cy - s_pt[1 * batch + j];
+      float a_raw;
+      if (kAntialias) {
+        const float ax = s_pt[2 * batch + j], ay = s_pt[3 * batch + j];
+        const float sx = s_pt[4 * batch + j], sy = s_pt[5 * batch + j];
+        const float tu = dx * ax + dy * ay;
+        const float tv = dy * ax - dx * ay;
+        const float ix = sx * (approx_cdf(tu + 0.5f, sx) - approx_cdf(tu - 0.5f, sx));
+        const float iy = sy * (approx_cdf(tv + 0.5f, sy) - approx_cdf(tv - 0.5f, sy));
+        a_raw = s_pt[6 * batch + j] * (kTwoPi * ix * iy);
+      } else {
+        const float qa = s_pt[2 * batch + j], qb = s_pt[3 * batch + j];
+        const float qc = s_pt[4 * batch + j];
+        a_raw = expf(s_pt[5 * batch + j]
+                     - 0.5f * (qa * dx * dx + 2.0f * qb * dx * dy + qc * dy * dy));
+      }
+      // below the threshold the gated alpha is 0: no weight, T unchanged
+      if (!(a_raw > alpha_threshold)) continue;
+      const float a = fminf(a_raw, clamp_max_alpha);
+      const float total_before = 1.0f - T;
+      float w;
+      if (kBlending) {
+        w = total_before < saturate_threshold ? a * T : 0.0f;
+        alpha_acc += w;
+      } else {
+        const float total_after = 1.0f - T * (1.0f - a);
+        w = (total_before < c && total_after >= c) ? 1.0f : 0.0f;
+        alpha_acc += a * T;
+      }
+#pragma unroll
+      for (int f = 0; f < kMaxFeatures; ++f) {
+        if (f < num_features) acc[f] += w * s_feat[f * batch + j];
+      }
+      T *= 1.0f - a;
+      // T never grows, so once the gate is closed it stays closed
+      if (!(1.0f - T < stop)) {
+        done = true;
+        break;
+      }
+    }
+  }
+
+  if (inside) {
+    const long long pix = static_cast<long long>(py) * width + px;
+#pragma unroll
+    for (int f = 0; f < kMaxFeatures; ++f) {
+      if (f < num_features) image[pix * num_features + f] = acc[f];
+    }
+    weight[pix] = kBlending ? alpha_acc : (alpha_acc > 0.0f ? 1.0f : 0.0f);
+  }
+}
+
+template <bool kAntialias, bool kBlending>
+cudaError_t launch(const float* points, const float* features,
+                   const int* overlap_to_point, const int* tile_ranges,
+                   int num_tiles, int tiles_x, int tile_size, int width,
+                   int height, int num_features, float alpha_threshold,
+                   float clamp_max_alpha, float saturate_threshold,
+                   float* image, float* weight, cudaStream_t stream) {
+  auto kernel = raster_forward_kernel<kAntialias, kBlending>;
+  const int threads = tile_size * tile_size;
+  const size_t smem = sizeof(float) * threads * (kPointRows + num_features);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<num_tiles, threads, smem, stream>>>(
+      points, features, overlap_to_point, tile_ranges, tiles_x, tile_size,
+      width, height, num_features, alpha_threshold, clamp_max_alpha,
+      saturate_threshold, image, weight);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tgr_raster_forward(
+    const float* points, const float* features, const int* overlap_to_point,
+    const int* tile_ranges, int num_tiles, int tiles_x, int tile_size,
+    int width, int height, int num_features, float alpha_threshold,
+    float clamp_max_alpha, float saturate_threshold, int antialias,
+    int blending, float* image, float* weight, void* stream) {
+  if (num_features < 1 || num_features > kMaxFeatures) return cudaErrorInvalidValue;
+  if (tile_size < 1 || tile_size * tile_size > 1024) return cudaErrorInvalidValue;
+  if (num_tiles == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (antialias) {
+    return blending
+        ? launch<true, true>(points, features, overlap_to_point, tile_ranges,
+                             num_tiles, tiles_x, tile_size, width, height,
+                             num_features, alpha_threshold, clamp_max_alpha,
+                             saturate_threshold, image, weight, s)
+        : launch<true, false>(points, features, overlap_to_point, tile_ranges,
+                              num_tiles, tiles_x, tile_size, width, height,
+                              num_features, alpha_threshold, clamp_max_alpha,
+                              saturate_threshold, image, weight, s);
+  }
+  return blending
+      ? launch<false, true>(points, features, overlap_to_point, tile_ranges,
+                            num_tiles, tiles_x, tile_size, width, height,
+                            num_features, alpha_threshold, clamp_max_alpha,
+                            saturate_threshold, image, weight, s)
+      : launch<false, false>(points, features, overlap_to_point, tile_ranges,
+                             num_tiles, tiles_x, tile_size, width, height,
+                             num_features, alpha_threshold, clamp_max_alpha,
+                             saturate_threshold, image, weight, s);
+}
+
+extern "C" const char* tgr_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}

@@ -1,0 +1,9 @@
+from .renderer import (Rendering, compute_depth_variance, render_gaussians,
+                       render_projected)
+
+__all__ = [
+    "Rendering",
+    "render_gaussians",
+    "render_projected",
+    "compute_depth_variance",
+]

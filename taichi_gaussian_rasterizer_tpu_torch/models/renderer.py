@@ -1,0 +1,184 @@
+"""3D gaussian renderer, forward path (port of
+`taichi_gaussian_rasterizer_tpu.models.renderer`).
+
+project -> shade (SH or raw features) -> tile map -> rasterize, with depth
+and depth^2 riding the blend as two prepended channels, and median depth
+from a second, non-blending pass at saturate_threshold = 0.5 over the same
+tile mapping.
+
+Not ported yet: `render_with_heuristics` and `viewspace_gradient` (training
+mode, ROADMAP queue 1 item 9); the heuristic/visibility sinks and
+`use_depth16` raise `NotImplementedError`. `capacity`, `emit_tails`,
+`reduce_capacity` and `visit_chunks`/`visit_capacity` are XLA static-shape
+knobs and are not part of these signatures.
+"""
+
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import RasterConfig
+from ..data_types import Gaussians3D
+from ..ops import lib
+from ..ops.mapper import map_to_tiles
+from ..ops.projection import CameraParams, project_to_image
+from ..ops.raster import rasterize_with_tiles
+from ..ops.sh import evaluate_sh_at
+
+
+@dataclass(frozen=True)
+class Rendering:
+  """Renderer outputs."""
+  image: torch.Tensor                 # (H, W, C)
+  image_weight: torch.Tensor          # (H, W) accumulated alpha
+  points_in_view: torch.Tensor        # (N,) bool mask
+  point_depth: torch.Tensor           # (N, 1)
+  gaussians2d: torch.Tensor           # (N, 7)
+  camera: CameraParams
+  config: RasterConfig
+  point_visibility: Optional[torch.Tensor] = None   # training mode (not ported)
+  point_heuristic: Optional[torch.Tensor] = None    # training mode (not ported)
+  depth: Optional[torch.Tensor] = None              # (H, W)
+  depth_var: Optional[torch.Tensor] = None          # (H, W)
+  median_depth: Optional[torch.Tensor] = None       # (H, W)
+
+  @property
+  def ndc_depth(self):
+    return lib.ndc_depth(self.depth, self.camera.near_plane,
+                         self.camera.far_plane)
+
+  @property
+  def ndc_median_depth(self):
+    return lib.ndc_depth(self.median_depth, self.camera.near_plane,
+                         self.camera.far_plane)
+
+  @property
+  def ndc_point_depth(self):
+    return lib.ndc_depth(self.point_depth, self.camera.near_plane,
+                         self.camera.far_plane)
+
+  @property
+  def point_scale(self):
+    return self.gaussians2d[:, 4:6]
+
+  @property
+  def point_opacity(self):
+    return self.gaussians2d[:, 6]
+
+  @property
+  def gaussian_scale(self):
+    """Cutoff multiple of sigma used for culling."""
+    return lib.gaussian_scale_factor(self.point_opacity,
+                                     self.config.alpha_threshold)
+
+  @property
+  def point_radii(self):
+    return torch.amax(self.point_scale, dim=1)
+
+  @property
+  def image_size(self) -> Tuple[int, int]:
+    return self.camera.image_size
+
+  @property
+  def num_points(self) -> int:
+    return self.points_in_view.shape[0]
+
+  def replace(self, **kwargs) -> "Rendering":
+    return replace(self, **kwargs)
+
+
+def compute_depth_variance(depth_depthsq, weight, eps=1e-6):
+  """E[d], Var[d] from blended [d, d^2] channels."""
+  w = weight + eps
+  depth = depth_depthsq[..., 0] / w
+  depth_sq = depth_depthsq[..., 1] / w
+  return depth, depth_sq - depth * depth
+
+
+def render_projected(in_view: torch.Tensor, gaussians2d: torch.Tensor,
+                     features: torch.Tensor, depths: torch.Tensor,
+                     camera_params: CameraParams, config: RasterConfig,
+                     render_depth: bool = False, use_depth16: bool = False,
+                     render_median_depth: bool = False,
+                     use_ndc_depth: bool = False,
+                     heuristic_sink: Optional[torch.Tensor] = None,
+                     visibility_sink: Optional[torch.Tensor] = None) -> Rendering:
+  """Rasterize already-projected gaussians."""
+  near, far = camera_params.near_plane, camera_params.far_plane
+  ndc_depths = lib.ndc_depth(torch.clamp(depths, min=near), near, far)
+
+  if render_depth:
+    d = ndc_depths if use_ndc_depth else depths
+    features = torch.cat([d, d * d, features], dim=1)
+
+  mapping = map_to_tiles(gaussians2d, ndc_depths[:, 0],
+                         camera_params.image_size, config,
+                         use_depth16=use_depth16)
+
+  raster = rasterize_with_tiles(
+      gaussians2d, features, mapping, camera_params.image_size, config,
+      heuristic_sink=heuristic_sink, visibility_sink=visibility_sink)
+
+  median_depth = None
+  if render_median_depth:
+    d = ndc_depths if use_ndc_depth else depths
+    median_cfg = config.replace(use_alpha_blending=False,
+                                saturate_threshold=0.5)
+    raster_median = rasterize_with_tiles(
+        gaussians2d.detach(), d.detach().contiguous(), mapping,
+        camera_params.image_size, median_cfg)
+    median_depth = raster_median.image[..., 0]
+
+  img_depth, img_depth_var = None, None
+  feature_image = raster.image
+  if render_depth:
+    img_depth, img_depth_var = compute_depth_variance(
+        feature_image[..., :2], raster.image_weight)
+    feature_image = feature_image[..., 2:]
+
+  return Rendering(
+      image=feature_image,
+      image_weight=raster.image_weight,
+      points_in_view=in_view,
+      point_depth=depths,
+      gaussians2d=gaussians2d,
+      camera=camera_params,
+      config=config,
+      depth=img_depth,
+      depth_var=img_depth_var,
+      median_depth=median_depth)
+
+
+def render_gaussians(gaussians: Gaussians3D,
+                     camera_params: CameraParams,
+                     config: RasterConfig = RasterConfig(),
+                     use_sh: bool = False,
+                     render_depth: bool = False,
+                     use_depth16: bool = False,
+                     render_median_depth: bool = False,
+                     heuristic_sink: Optional[torch.Tensor] = None,
+                     visibility_sink: Optional[torch.Tensor] = None) -> Rendering:
+  """Render 3D gaussians.
+
+  With use_sh=True the features are (N, 3, (d+1)^2) SH coefficients,
+  shaded at every point with detached positions; otherwise raw (N, C)
+  features.
+  """
+  gaussians2d, depths, in_view = project_to_image(
+      gaussians, camera_params, config)
+
+  if use_sh:
+    features = evaluate_sh_at(gaussians.feature, gaussians.position.detach(),
+                              camera_params.camera_position)
+  else:
+    features = gaussians.feature
+    if features.ndim != 2:
+      raise ValueError(
+          f"Features must be (N, C) if use_sh=False, got {tuple(features.shape)}")
+
+  return render_projected(
+      in_view, gaussians2d, features, depths, camera_params, config,
+      render_depth=render_depth, use_depth16=use_depth16,
+      render_median_depth=render_median_depth,
+      heuristic_sink=heuristic_sink, visibility_sink=visibility_sink)

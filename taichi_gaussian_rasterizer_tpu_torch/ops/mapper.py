@@ -1,0 +1,192 @@
+"""Tile mapper: bin projected 2D gaussians into depth-sorted per-tile lists
+(port of `taichi_gaussian_rasterizer_tpu.ops.mapper`).
+
+Computes what the JAX mapper computes -- the same footprint with the
+same `max_tile_span` clamp-and-flag, the same oriented-ellipse/tile
+separating-axis test, the same per-tile front-to-back order -- in plain
+torch with dynamic sizes:
+
+  footprint -> candidate count per gaussian -> exclusive scan -> one
+  host sync for the candidate total -> emit one (tile, depth) key per
+  candidate, rejected candidates keyed past every tile -> one stable
+  sort -> per-tile [start, end) ranges by searchsorted.
+
+The key is the 64-bit `tile << 32 | depth_rank`, where depth_rank is the
+gaussian's position in a stable depth sort: lexicographic (tile, depth)
+order for any float dtype, ties broken by point index.
+
+Left out, because they exist only for XLA's static shapes on the TPU:
+`capacity` (buffers are sized from the synced total instead),
+`emit_tails`/`probe_emit_tails` and the bucketed emission ladder, and the
+two-level searchsorted. `use_depth16` (16-bit depth keys) is not ported
+yet: ROADMAP queue 1 item 10. `point_offsets` (the per-point segment
+offsets the gradient reduction needs) comes with the backward kernel.
+"""
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from ..config import RasterConfig
+from . import lib
+
+
+def cdiv(a: int, b: int) -> int:
+  return -(-a // b)
+
+
+def num_tiles(image_size: Tuple[int, int], tile_size: int) -> Tuple[int, int]:
+  """(tiles across, tiles down)."""
+  w, h = image_size
+  return cdiv(int(w), tile_size), cdiv(int(h), tile_size)
+
+
+@dataclass(frozen=True)
+class TileMapping:
+  """Result of map_to_tiles.
+
+  Bins abut in one sorted overlap list: tile t's points, front to back,
+  are overlap_to_point[tile_ranges[t, 0]:tile_ranges[t, 1]]. Real
+  overlaps fill [0, total_overlaps); the candidates the separating-axis
+  test rejected trail them with point `point_sentinel` (== N) and tile
+  TH*TW, as in the JAX package's sentinel tail.
+  """
+  overlap_to_point: torch.Tensor  # (K,) int32 point index, or N past the bins
+  overlap_to_tile: torch.Tensor   # (K,) int32 tile index, or TH*TW past the bins
+  tile_ranges: torch.Tensor       # (TH*TW, 2) int32 [start, end) per tile
+  tile_shape: Tuple[int, int]     # (TH, TW)
+  total_overlaps: torch.Tensor    # () int64 number of real (point, tile) pairs
+  overflow: torch.Tensor          # () bool: a footprint exceeded max_tile_span
+                                  # and was clamped
+  point_sentinel: int             # == N
+
+
+def _footprint(points: torch.Tensor, image_size, tile_size: int,
+               alpha_threshold: float, max_span: int):
+  """Per-gaussian tile footprint: first tile, clamped span and the inverse
+  oriented-bounding-box basis. Gaussians at or below the alpha threshold
+  get span 0."""
+  mx, my = points[:, 0], points[:, 1]
+  ax, ay = points[:, 2], points[:, 3]
+  sx, sy = points[:, 4], points[:, 5]
+  alpha = points[:, 6]
+
+  valid = alpha > alpha_threshold
+  gs = lib.gaussian_scale_factor(alpha, alpha_threshold)
+  r0 = torch.clamp(sx * gs, min=1e-12)
+  r1 = torch.clamp(sy * gs, min=1e-12)
+
+  # ellipse AABB: axes u1 = axis * r0, u2 = perp(axis) * r1
+  ext_x = torch.sqrt((ax * r0) ** 2 + (ay * r1) ** 2)
+  ext_y = torch.sqrt((ay * r0) ** 2 + (ax * r1) ** 2)
+
+  tw, th = num_tiles(image_size, tile_size)
+
+  def axis_range(m, ext, nt):
+    # clamp in float before the integer cast: far-off footprints must not
+    # overflow int32 (the clamped results equal the JAX mapper's)
+    lo = torch.clamp(torch.floor((m - ext) / tile_size), 0, nt - 1).to(torch.int32)
+    hi = torch.clamp(torch.ceil((m + ext) / tile_size), 0, nt).to(torch.int32)
+    hi = torch.clamp(torch.maximum(hi, lo + 1), max=nt)
+    return lo, hi
+
+  tx0, tx1 = axis_range(mx, ext_x, tw)
+  ty0, ty1 = axis_range(my, ext_y, th)
+
+  zero = torch.zeros_like(tx0)
+  raw_x = torch.where(valid, tx1 - tx0, zero)
+  raw_y = torch.where(valid, ty1 - ty0, zero)
+  clipped = torch.any(raw_x > max_span) | torch.any(raw_y > max_span)
+
+  return dict(
+      mx=mx, my=my, tx0=tx0, ty0=ty0,
+      span_x=torch.clamp(raw_x, 0, max_span),
+      span_y=torch.clamp(raw_y, 0, max_span),
+      ib=(ax / r0, ay / r0, -ay / r1, ax / r1),
+      clipped=clipped)
+
+
+def _sat_accept(lo_x, lo_y, ib, tile_size):
+  """Oriented-ellipse vs tile separating-axis test; True = overlaps.
+  lo_x/lo_y: tile lower corner relative to the mean; ib: the four
+  inverse-basis entries (row-major). The extrema of a linear function
+  over a box are sums of per-axis extrema, so no corners are enumerated."""
+  hi_x = lo_x + tile_size
+  hi_y = lo_y + tile_size
+  ib00, ib01, ib10, ib11 = ib
+
+  sep = None
+  for bx, by in ((ib00, ib01), (ib10, ib11)):
+    mn = (torch.minimum(bx * lo_x, bx * hi_x)
+          + torch.minimum(by * lo_y, by * hi_y))
+    mx = (torch.maximum(bx * lo_x, bx * hi_x)
+          + torch.maximum(by * lo_y, by * hi_y))
+    s = (mn > 1.0) | (mx < -1.0)
+    sep = s if sep is None else (sep | s)
+  return ~sep
+
+
+def map_to_tiles(points: torch.Tensor, depth: torch.Tensor,
+                 image_size: Tuple[int, int], config: RasterConfig,
+                 use_depth16: bool = False) -> TileMapping:
+  """Map gaussians to tiles, depth-sorted front to back within each tile.
+
+  Args:
+    points: (N, 7) packed 2D gaussians
+    depth: (N,) or (N, 1) sort depths
+    image_size: (width, height)
+    config: RasterConfig (tile_size, alpha_threshold, max_tile_span)
+    use_depth16: not ported yet (raises NotImplementedError)
+  """
+  if use_depth16:
+    raise NotImplementedError(
+        "use_depth16 (16-bit depth sort keys) is not ported yet: "
+        "ROADMAP queue 1 item 10")
+  n = points.shape[0]
+  if depth.ndim == 2:
+    depth = depth[:, 0]
+  device = points.device
+  tile_size = config.tile_size
+  tw, th = num_tiles(image_size, tile_size)
+  n_tiles = tw * th
+
+  fp = _footprint(points, image_size, tile_size, config.alpha_threshold,
+                  config.max_tile_span)
+
+  # candidates: every tile of each clamped footprint (row-major within it)
+  counts = (fp["span_x"] * fp["span_y"]).to(torch.int64)
+  offsets = torch.cumsum(counts, 0) - counts
+  n_cand = int(counts.sum())                     # the one host sync
+  gid = torch.repeat_interleave(
+      torch.arange(n, device=device), counts, output_size=n_cand)
+  j = torch.arange(n_cand, device=device) - offsets[gid]
+  sx = fp["span_x"].to(torch.int64)[gid]
+  ty = fp["ty0"][gid] + j // sx
+  tx = fp["tx0"][gid] + j % sx
+  lo_x = (tx * tile_size).to(points.dtype) - fp["mx"][gid]
+  lo_y = (ty * tile_size).to(points.dtype) - fp["my"][gid]
+  accept = _sat_accept(lo_x, lo_y, tuple(b[gid] for b in fp["ib"]), tile_size)
+
+  # one stable sort on (tile, depth rank); rejected candidates sort last
+  depth_rank = torch.empty(n, dtype=torch.int64, device=device)
+  depth_rank[torch.sort(depth, stable=True).indices] = torch.arange(
+      n, device=device)
+  tile = torch.where(accept, (tx + ty * tw).to(torch.int64), n_tiles)
+  key = (tile << 32) | depth_rank[gid]
+  key, order = torch.sort(key, stable=True)
+  sorted_tile = (key >> 32).to(torch.int32)
+  overlap_to_point = torch.where(sorted_tile < n_tiles, gid[order], n).to(torch.int32)
+
+  bounds = torch.searchsorted(
+      sorted_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=device))
+  tile_ranges = torch.stack([bounds[:-1], bounds[1:]], dim=1).to(torch.int32)
+
+  return TileMapping(
+      overlap_to_point=overlap_to_point,
+      overlap_to_tile=sorted_tile,
+      tile_ranges=tile_ranges,
+      tile_shape=(th, tw),
+      total_overlaps=bounds[-1],
+      overflow=fp["clipped"],
+      point_sentinel=n)

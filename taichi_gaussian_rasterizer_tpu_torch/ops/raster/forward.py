@@ -1,0 +1,209 @@
+"""Forward rasterizer: the CUDA kernel's wrapper and its plain PyTorch version.
+
+`rasterize_forward` is the one entry point. On a CUDA tensor it launches
+the hand-written kernel `csrc/raster_forward.cu` (which replaces the TPU
+kernel `taichi_gaussian_rasterizer_tpu/ops/raster/forward.py:_forward_kernel`)
+or raises; on a CPU tensor it runs `rasterize_tiles_plain`, the same blend
+written as straight tensor code over each tile's bin, which autograd
+differentiates. Nothing falls back from the kernel to the plain version.
+
+Blend semantics are the JAX package's (`blend.chunk_weights_raw`), which
+differ from the Taichi reference's forward:
+
+* alpha = point_alpha * pdf, gated to 0 unless > alpha_threshold and
+  clamped at clamp_max_alpha;
+* the blend weight a * T is gated on 1 - T < saturate_threshold (the
+  accumulated weight before the point);
+* quantile (non-blending) mode weights the point whose accumulated weight
+  crosses c = 1 - saturate_threshold with 1, and the weight image is
+  (sum of a * T > 0);
+* the conic pdf is exp(log pa - d^T Q d / 2) with Q from the eigen form;
+  the antialiased pdf is the box-integrated sigmoid-CDF form. Pixel and
+  mean coordinates are tile-local, as in the JAX kernels.
+"""
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ...config import RasterConfig
+from ...utils.cuda_build import CudaKernel
+from ..mapper import TileMapping
+from .tiles import tiles_to_image
+
+MAX_FEATURES = 16   # kMaxFeatures in csrc/raster_forward.cu
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+RASTER_FORWARD = CudaKernel(
+    "raster_forward.cu", "tgr_raster_forward",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+     ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _I, _P, _P, _P])
+
+# elements of one (tiles, pixels, points) field the plain version
+# materializes at a time; bounds its memory on large frames
+_PLAIN_BATCH_ELEMENTS = 1 << 25
+
+
+def _pdf_alpha(pts: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
+               ox: torch.Tensor, oy: torch.Tensor, antialias: bool):
+  """Pre-gate alpha point_alpha * pdf of every (tile, pixel, point) triple.
+
+  pts: (B, M, 7) packed bin points; cx, cy: (P,) tile-local pixel centres;
+  ox, oy: (B,) tile origins. Returns (B, P, M)."""
+  mx = (pts[..., 0] - ox[:, None])[:, None, :]      # (B, 1, M) tile-local
+  my = (pts[..., 1] - oy[:, None])[:, None, :]
+  ax, ay = pts[..., 2][:, None, :], pts[..., 3][:, None, :]
+  sx, sy = pts[..., 4][:, None, :], pts[..., 5][:, None, :]
+  pa = pts[..., 6][:, None, :]
+  dx = cx[None, :, None] - mx
+  dy = cy[None, :, None] - my
+  if antialias:
+    def cdf(x, s):
+      z = x / s
+      return torch.sigmoid(1.6 * z + 0.07 * z * z * z)
+
+    tu = dx * ax + dy * ay
+    tv = dy * ax - dx * ay
+    ix = sx * (cdf(tu + 0.5, sx) - cdf(tu - 0.5, sx))
+    iy = sy * (cdf(tv + 0.5, sy) - cdf(tv - 0.5, sy))
+    return pa * (2.0 * torch.pi * ix * iy)
+  isx2 = 1.0 / (sx * sx)
+  isy2 = 1.0 / (sy * sy)
+  qa = ax * ax * isx2 + ay * ay * isy2
+  qb = ax * ay * (isx2 - isy2)
+  qc = ay * ay * isx2 + ax * ax * isy2
+  log_pa = torch.clamp(torch.log(torch.clamp(pa, min=0.0)), min=-1e4)
+  return torch.exp(log_pa - 0.5 * (qa * dx * dx + 2.0 * qb * dx * dy + qc * dy * dy))
+
+
+def rasterize_tiles_plain(points: torch.Tensor, features: torch.Tensor,
+                          mapping: TileMapping, config: RasterConfig,
+                          tile_ids: Optional[Sequence[int]] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Plain PyTorch forward over whole tile bins.
+
+  Each bin is gathered into a (tiles, pixels, points) field; the
+  transmittance before each point is an exclusive cumulative product of
+  (1 - a). `tile_ids` selects a subset of tiles (default: all).
+
+  Returns tile-packed (image (T', F, P), weight (T', P)) for the selected
+  tiles, in `tile_ids` order.
+  """
+  dtype, device = points.dtype, points.device
+  f = features.shape[1]
+  ts = config.tile_size
+  p = ts * ts
+  th, tw = mapping.tile_shape
+  if tile_ids is None:
+    tiles = torch.arange(th * tw, device=device)
+  else:
+    tiles = torch.as_tensor(tile_ids, dtype=torch.int64, device=device)
+  ranges = mapping.tile_ranges[tiles].to(torch.int64)
+  starts, counts = ranges[:, 0], ranges[:, 1] - ranges[:, 0]
+  mb = max(int(counts.max()) if len(tiles) else 0, 1)
+  sentinel = points.shape[0]
+  k = mapping.overlap_to_point.shape[0]
+  # one trailing sentinel slot keeps the bin gather in bounds
+  otp = torch.cat([mapping.overlap_to_point.to(torch.int64),
+                   torch.full((1,), sentinel, dtype=torch.int64, device=device)])
+
+  lin = torch.arange(p, device=device)
+  cx = (lin % ts).to(dtype) + 0.5
+  cy = (lin // ts).to(dtype) + 0.5
+  # sentinel row N: zero alpha, unit axis and sigma -- an exact no-op
+  pts_pad = torch.cat(
+      [points, torch.tensor([[0, 0, 1, 0, 1, 1, 0]], dtype=dtype, device=device)])
+  feats_pad = torch.cat([features, features.new_zeros(1, f)])
+  c = 1 - config.saturate_threshold
+
+  images, weights = [], []
+  step = max(1, _PLAIN_BATCH_ELEMENTS // (p * mb))
+  for b0 in range(0, len(tiles), step):
+    t = tiles[b0:b0 + step]
+    slot = starts[b0:b0 + step, None] + torch.arange(mb, device=device)
+    live = torch.arange(mb, device=device) < counts[b0:b0 + step, None]
+    idx = torch.where(live, otp[slot.clamp(max=k)], sentinel)
+    ox = ((t % tw) * ts).to(dtype)
+    oy = ((t // tw) * ts).to(dtype)
+
+    a_raw = _pdf_alpha(pts_pad[idx], cx, cy, ox, oy, config.antialias)
+    a_eff = torch.where(a_raw > config.alpha_threshold,
+                        torch.clamp(a_raw, max=config.clamp_max_alpha),
+                        torch.zeros_like(a_raw))
+    t_incl = torch.cumprod(1 - a_eff, dim=-1)
+    t_excl = torch.cat([torch.ones_like(t_incl[..., :1]), t_incl[..., :-1]], dim=-1)
+    total_before = 1 - t_excl
+    if config.use_alpha_blending:
+      w = a_eff * t_excl * (total_before < config.saturate_threshold)
+      alpha = w.sum(-1)
+    else:
+      total_after = 1 - t_excl * (1 - a_eff)
+      w = ((total_before < c) & (total_after >= c)).to(dtype)
+      alpha = (a_eff * t_excl).sum(-1)
+    images.append(torch.einsum("bpm,bmf->bfp", w, feats_pad[idx]))
+    weights.append(alpha if config.use_alpha_blending else (alpha > 0).to(dtype))
+
+  if not images:
+    return points.new_zeros(0, f, p), points.new_zeros(0, p)
+  return torch.cat(images), torch.cat(weights)
+
+
+def _check_cuda_inputs(points, features, mapping):
+  f = features.shape[1] if features.ndim == 2 else -1
+  for name, t, dt in (("points", points, torch.float32),
+                      ("features", features, torch.float32),
+                      ("overlap_to_point", mapping.overlap_to_point, torch.int32),
+                      ("tile_ranges", mapping.tile_ranges, torch.int32)):
+    if t.device != points.device:
+      raise ValueError(f"{name} is on {t.device}, points on {points.device}")
+    if t.dtype != dt:
+      raise TypeError(f"the CUDA raster kernel takes {name} as {dt}, got {t.dtype}")
+    if not t.is_contiguous():
+      raise ValueError(f"{name} must be contiguous")
+  if points.ndim != 2 or points.shape[1] != 7:
+    raise ValueError(f"points must be (N, 7), got {tuple(points.shape)}")
+  if not 1 <= f <= MAX_FEATURES or features.shape[0] != points.shape[0]:
+    raise ValueError(
+        f"the CUDA raster kernel takes (N, F) features with 1 <= F <= "
+        f"{MAX_FEATURES} (MAX_FEATURES), got {tuple(features.shape)}")
+
+
+def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
+                         mapping: TileMapping, image_size: Tuple[int, int],
+                         config: RasterConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Launch the CUDA kernel: float32 only, (N, F) features with F <= 16,
+  tile_size**2 <= 1024. Returns (image (H, W, F), weight (H, W))."""
+  _check_cuda_inputs(points, features, mapping)
+  ts = config.tile_size
+  if ts * ts > 1024:
+    raise ValueError(f"tile_size {ts}: the CUDA kernel takes at most 32x32 tiles")
+  w, h = image_size
+  th, tw = mapping.tile_shape
+  image = torch.empty((h, w, features.shape[1]), dtype=torch.float32,
+                      device=points.device)
+  weight = torch.empty((h, w), dtype=torch.float32, device=points.device)
+  RASTER_FORWARD.launch(
+      points.data_ptr(), features.data_ptr(),
+      mapping.overlap_to_point.data_ptr(), mapping.tile_ranges.data_ptr(),
+      th * tw, tw, ts, w, h, features.shape[1],
+      config.alpha_threshold, config.clamp_max_alpha,
+      config.saturate_threshold, int(config.antialias),
+      int(config.use_alpha_blending), image.data_ptr(), weight.data_ptr(),
+      torch.cuda.current_stream(points.device).cuda_stream)
+  return image, weight
+
+
+def rasterize_forward(points: torch.Tensor, features: torch.Tensor,
+                      mapping: TileMapping, image_size: Tuple[int, int],
+                      config: RasterConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(image (H, W, F), weight (H, W)): the CUDA kernel for CUDA tensors,
+  the plain version for CPU tensors. A non-float32 CUDA input raises."""
+  if points.is_cuda:
+    return rasterize_tiles_cuda(points, features, mapping, image_size, config)
+  if points.device.type != "cpu":
+    raise ValueError(f"no forward rasterizer for device {points.device}")
+  image, weight = rasterize_tiles_plain(points, features, mapping, config)
+  ts = config.tile_size
+  return (tiles_to_image(image, mapping.tile_shape, ts, image_size),
+          tiles_to_image(weight[:, None, :], mapping.tile_shape, ts, image_size)[..., 0])

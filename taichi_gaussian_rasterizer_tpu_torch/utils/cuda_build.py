@@ -1,0 +1,99 @@
+"""Build the package's CUDA sources at first use and bind them with ctypes.
+
+Each source under `csrc/` exposes a plain C interface. It is compiled by
+`nvcc` for Hopper (`sm_90a`) into a shared library under the checkout's
+`build/kernels/`, named by a hash of the source and the flags, so an
+unchanged source is built once and a changed one is rebuilt. No PyTorch
+header is included: a build takes seconds, not minutes.
+
+Nothing is built or loaded when this module is imported; a build that
+fails (no `nvcc`, a compile error) raises, and nothing falls back.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+  cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+  candidates = [shutil.which("nvcc"),
+                os.path.join(cuda_home, "bin", "nvcc") if cuda_home else None,
+                "/usr/local/cuda/bin/nvcc"]
+  for cand in candidates:
+    if cand and os.access(cand, os.X_OK):
+      return cand
+  raise RuntimeError(
+      "nvcc not found: the CUDA kernels are built from source at first use; "
+      "put the CUDA toolkit's nvcc on PATH or set CUDA_HOME")
+
+
+def build(source: str) -> tuple:
+  """Compile csrc/<source> into build/kernels/; returns (library path,
+  compiler log). The log is empty when the library was already built."""
+  src = CSRC_DIR / source
+  digest = hashlib.sha256(
+      src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+  out = BUILD_DIR / f"{src.stem}_{digest}.so"
+  if out.exists():
+    return out, ""
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+  proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                        capture_output=True, text=True)
+  if proc.returncode != 0:
+    tmp.unlink(missing_ok=True)
+    raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stderr}")
+  os.replace(tmp, out)   # atomic: a concurrent process never loads a partial file
+  return out, proc.stdout + proc.stderr
+
+
+class CudaKernel:
+  """One C entry point of a CUDA source, built and loaded at first use.
+
+  The entry point returns the `cudaError_t` of its launch; `launch`
+  raises on a non-zero status and otherwise adds one to `launch_count`.
+  The source must also export `const char* tgr_error_string(int)`.
+  """
+
+  def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    self.source = source
+    self.symbol = symbol
+    self.argtypes = list(argtypes)
+    self.launch_count = 0
+    self.build_seconds: Optional[float] = None
+    self.build_log = ""
+    self._fn = None
+    self._error_string = None
+
+  def load(self):
+    if self._fn is None:
+      t0 = time.perf_counter()
+      path, self.build_log = build(self.source)
+      lib = ctypes.CDLL(str(path))
+      fn = getattr(lib, self.symbol)
+      fn.argtypes = self.argtypes
+      fn.restype = ctypes.c_int
+      err = lib.tgr_error_string
+      err.argtypes = [ctypes.c_int]
+      err.restype = ctypes.c_char_p
+      self._fn, self._error_string = fn, err
+      self.build_seconds = time.perf_counter() - t0
+    return self._fn
+
+  def launch(self, *args) -> None:
+    status = self.load()(*args)
+    if status != 0:
+      raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {status} "
+                         f"({self._error_string(status).decode()})")
+    self.launch_count += 1

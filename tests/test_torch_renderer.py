@@ -1,0 +1,186 @@
+"""The port's whole forward slice (`render_gaussians`) against the JAX
+package, and the port's import hygiene.
+
+Tolerances:
+* float64: every image atol 1e-8 (image, weight, depth, depth variance,
+  median depth); the in-view mask and the projected points as in
+  test_torch_projection.
+* float32 (JAX with exact_features and deterministic): image and weight
+  p99.9 |diff| <= 1e-3 and max |diff| <= 2e-2 -- a gate at
+  alpha_threshold can flip on a borderline pixel.
+
+The kernel itself is held against its plain version on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import taichi_gaussian_rasterizer_tpu as tgr_jax
+
+from taichi_gaussian_rasterizer_tpu_torch import RasterConfig, render_gaussians
+from taichi_gaussian_rasterizer_tpu_torch.ops.mapper import map_to_tiles
+from taichi_gaussian_rasterizer_tpu_torch.ops.raster import forward, tiles
+from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import (
+    random_3d_gaussians, random_camera)
+
+import torch_port_scenes as scenes
+
+ROOT = Path(__file__).resolve().parents[1]
+SIZE = (64, 48)
+SCENES = {
+    "translucent": dict(seed=10, scale_factor=1.0, alpha_range=(0.1, 0.9)),
+    # large opaque splats: the median crosses inside the bins and most
+    # pixels saturate
+    "saturating": dict(seed=11, scale_factor=3.0, alpha_range=(0.75, 0.99)),
+}
+
+
+def render_both(scene, dtype, use_sh, n=300):
+  s = SCENES[scene]
+  cam = scenes.camera(s["seed"], SIZE)
+  g = scenes.gaussians3d(s["seed"] + 1, n, cam, scale_factor=s["scale_factor"],
+                         alpha_range=s["alpha_range"],
+                         sh_degree=3 if use_sh else None)
+  jg, jcam = scenes.jax_scene(cam, g, dtype)
+  tg, tcam = scenes.torch_scene(cam, g, dtype)
+  kw = dict(use_sh=use_sh, render_depth=True, render_median_depth=True)
+  want = tgr_jax.render_gaussians(
+      jg, jcam, tgr_jax.RasterConfig(tile_size=8, points_per_chunk=8,
+                                     exact_features=True, deterministic=True),
+      **kw)
+  got = render_gaussians(tg, tcam, RasterConfig(tile_size=8), **kw)
+  return got, want
+
+
+@pytest.mark.parametrize("scene,use_sh", [
+    ("translucent", False), ("translucent", True), ("saturating", True)])
+def test_render_gaussians_float64_matches_jax(scene, use_sh):
+  got, want = render_both(scene, np.float64, use_sh)
+  assert got.image.shape == (SIZE[1], SIZE[0], 3)
+  np.testing.assert_array_equal(got.points_in_view.numpy(),
+                                np.asarray(want.points_in_view))
+  np.testing.assert_allclose(got.gaussians2d.numpy(), np.asarray(want.gaussians2d),
+                             atol=1e-10, rtol=0)
+  for name in ("image", "image_weight", "depth", "depth_var", "median_depth"):
+    np.testing.assert_allclose(getattr(got, name).numpy(),
+                               np.asarray(getattr(want, name)),
+                               atol=1e-8, rtol=0, err_msg=name)
+  weight = got.image_weight.numpy()
+  if scene == "saturating":
+    assert (weight >= 0.9999).mean() > 0.5
+  # the median is a depth some point really has, where any point covers
+  covered = weight > 0.6
+  assert covered.any() and (got.median_depth.numpy()[covered] >= 1.0).all()
+
+
+def test_render_gaussians_float32_matches_jax():
+  got, want = render_both("translucent", np.float32, use_sh=True)
+  assert got.image.dtype == torch.float32
+  for name in ("image", "image_weight"):
+    diff = np.abs(getattr(got, name).numpy() - np.asarray(getattr(want, name)))
+    assert np.quantile(diff, 0.999) <= 1e-3, (name, np.quantile(diff, 0.999))
+    assert diff.max() <= 2e-2, (name, diff.max())
+
+
+def test_render_depth_channels_are_stripped():
+  """render_depth prepends depth and depth^2 to the blend and takes them
+  off again: the feature image is what a render without depth gives."""
+  cam = scenes.camera(12, SIZE)
+  g = scenes.gaussians3d(13, 200, cam)
+  tg, tcam = scenes.torch_scene(cam, g, np.float64)
+  config = RasterConfig(tile_size=16)
+  plain = render_gaussians(tg, tcam, config)
+  with_depth = render_gaussians(tg, tcam, config, render_depth=True)
+  assert plain.depth is None and plain.median_depth is None
+  torch.testing.assert_close(with_depth.image, plain.image, rtol=0, atol=1e-12)
+  torch.testing.assert_close(with_depth.image_weight, plain.image_weight,
+                             rtol=0, atol=1e-12)
+
+
+def test_config_fields_match_jax():
+  """Every field of the JAX RasterConfig, with its default."""
+  def defaults(cls):
+    return {f.name: f.default for f in dataclasses.fields(cls)}
+  assert defaults(RasterConfig) == defaults(tgr_jax.RasterConfig)
+
+
+def test_random_scene_renders_on_cpu():
+  """random_camera / random_3d_gaussians from a torch.Generator give a
+  scene that mostly lands in view and renders to finite images."""
+  gen = torch.Generator().manual_seed(0)
+  camera = random_camera(gen, image_size=(96, 64))
+  scene = random_3d_gaussians(gen, 500, camera, sh_degree=1)
+  assert scene.feature.shape == (500, 3, 4)
+  r = render_gaussians(scene, camera, RasterConfig(), use_sh=True,
+                       render_depth=True)
+  assert int(r.points_in_view.sum()) > 400
+  assert torch.isfinite(r.image).all() and torch.isfinite(r.depth).all()
+  assert float(r.image_weight.max()) <= 1.0 and float(r.image_weight.mean()) > 0.1
+
+
+def _run_python(code, **env):
+  full_env = {k: v for k, v in os.environ.items()
+              if k not in ("CUDA_HOME", "CUDA_PATH")}
+  full_env.update(env)
+  proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=full_env,
+                        capture_output=True, text=True, timeout=120)
+  assert proc.returncode == 0, proc.stderr
+  return proc.stdout
+
+
+def test_package_imports_without_jax_nvcc_or_triton():
+  """Importing the port pulls in no JAX, and its kernel module imports
+  (building nothing) on a machine with no nvcc and no triton."""
+  out = _run_python(
+      "import sys\n"
+      "import taichi_gaussian_rasterizer_tpu_torch\n"
+      "from taichi_gaussian_rasterizer_tpu_torch.ops.raster import forward\n"
+      "mods = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton')]\n"
+      "print(mods, forward.RASTER_FORWARD._fn, forward.RASTER_FORWARD.launch_count)\n",
+      PATH=os.path.dirname(sys.executable))
+  assert out.split() == ["[]", "None", "0"]
+
+
+def test_cpu_tensor_takes_the_plain_path():
+  points, depth, feats = scenes.points2d(20, 100, (40, 24))
+  pts, f = scenes.to_torch(points, np.float32), scenes.to_torch(feats, np.float32)
+  config = RasterConfig(tile_size=8)
+  mapping = map_to_tiles(pts, scenes.to_torch(depth, np.float32), (40, 24), config)
+  before = forward.RASTER_FORWARD.launch_count
+  image, weight = forward.rasterize_forward(pts, f, mapping, (40, 24), config)
+  assert forward.RASTER_FORWARD.launch_count == before
+  tiled, tiled_w = forward.rasterize_tiles_plain(pts, f, mapping, config)
+  torch.testing.assert_close(
+      image, tiles.tiles_to_image(tiled, mapping.tile_shape, 8, (40, 24)),
+      rtol=0, atol=0)
+  torch.testing.assert_close(
+      weight, tiles.tiles_to_image(tiled_w[:, None], mapping.tile_shape, 8,
+                                   (40, 24))[..., 0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["float64", "too_many_features", "bad_shape"])
+def test_kernel_input_checks(bad):
+  """The checks the CUDA wrapper runs before a launch: float32 only (a
+  float64 CUDA input raises TypeError), (N, F) features with F <= 16."""
+  points, depth, feats = scenes.points2d(21, 50, (32, 24), n_features=3)
+  pts, f = scenes.to_torch(points, np.float32), scenes.to_torch(feats, np.float32)
+  mapping = map_to_tiles(pts, scenes.to_torch(depth, np.float32), (32, 24),
+                         RasterConfig(tile_size=8))
+  if bad == "float64":
+    with pytest.raises(TypeError, match="float32"):
+      forward._check_cuda_inputs(pts.double(), f, mapping)
+  elif bad == "too_many_features":
+    with pytest.raises(ValueError, match="MAX_FEATURES"):
+      forward._check_cuda_inputs(pts, torch.zeros(50, forward.MAX_FEATURES + 1),
+                                 mapping)
+  else:
+    with pytest.raises(ValueError, match=r"\(N, 7\)"):
+      forward._check_cuda_inputs(pts[:, :6].contiguous(), f, mapping)
