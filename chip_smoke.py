@@ -2,21 +2,29 @@
 """Smoke run of the PyTorch/CUDA port (`taichi_gaussian_rasterizer_tpu_torch`)
 on one NVIDIA GPU.
 
-Builds the port's CUDA forward raster kernel from the checkout's sources,
-holds it against its plain PyTorch version, and drives the serving path,
-`render_gaussians`, at the benchmark's size: 1M random gaussians at
+Builds the port's three CUDA kernels from the checkout's sources, holds
+each against its plain PyTorch version, and drives the serving path,
+`render_gaussians`, and the training frame, `render_gaussians` then
+`loss.backward()`, at the benchmark's size: 1M random gaussians at
 2048x1536. Phases, each printing its lines:
 
-1. build -- nvcc builds csrc/raster_forward.cu for sm_90a; prints the
-   build time, ptxas's register and spill summary, the card's name and
+1. build -- nvcc builds csrc/raster_forward.cu, raster_backward.cu and
+   segment_sum.cu for sm_90a, one process each, all at once; prints the
+   build times, ptxas's register and spill summary, the card's name and
    power limit.
-2. kernel against plain -- about 20k gaussians at 640x480 in float32, in
-   all four modes (blending or quantile, conic or antialiased pdf);
-   asserts the tolerance below and prints max and p99.99 |diff| and both
-   versions' times.
-3. the slice at full size -- five renders of RGB features with
-   `RasterConfig()` defaults, the count of kernel launches set to 0 just
-   before them and read just after; checks one launch per render, finite
+2. forward kernel against plain -- about 20k gaussians at 640x480 in
+   float32, in all four modes (blending or quantile, conic or antialiased
+   pdf); asserts the tolerance below and prints max and p99.99 |diff| and
+   both versions' times.
+2b. backward kernels against plain -- phase 2's scene with a seeded
+   cotangent image and weight: the backward kernel's slot rows against
+   the plain backward on every slot, conic and antialias, with and
+   without the heuristic and visibility rows; the segment-sum kernel
+   against the plain segment sum; two runs of each bitwise identical.
+   Prints the relative max and p99.99 |diff| and both versions' times.
+3. the serving slice at full size -- five renders of RGB features with
+   `RasterConfig()` defaults, the launch counts set to 0 just before them
+   and read just after; checks one forward launch per render, finite
    output, weight in [0, 1], a non-zero overlap total, and the rendered
    pixels of 64 seeded tiles against the plain version; prints the median
    ms/frame, the frame split into projection, mapper and raster, and the
@@ -24,13 +32,30 @@ holds it against its plain PyTorch version, and drives the serving path,
 4. the serving configuration -- the same size with SH degree-3 features,
    `use_sh`, `render_depth` and `render_median_depth` (two kernel launches
    a frame); checks finite output and prints ms/frame.
+5. the training frame at full size -- five steps of render_gaussians,
+   loss sum(image * G) with G a seeded normal image, loss.backward() and
+   a plain SGD update; checks one launch of each kernel per step and
+   finite, non-zero gradients on all five Gaussians3D tensors; holds the
+   backward kernel's slot rows on 64 seeded tiles against the plain
+   version and the segment-sum kernel over the whole frame; prints the
+   median ms/step, its split, the kernels' and plain versions' times and
+   peak device memory.
+6. training mode -- three `render_with_heuristics` steps at the same
+   size; checks finite heuristics and visibility >= 0; prints ms/step.
 
-Tolerance, kernel against plain (float32, same inputs): p99.99 |diff| <=
-1e-4 everywhere, and max |diff| <= 2e-2 in blending mode. The two round the
-pdf and the transmittance product differently, so a pixel whose alpha lies
-within rounding of alpha_threshold can be gated differently: that moves a
-blended pixel by at most alpha_threshold times a feature, but in quantile
-mode it can select another point outright.
+Tolerances (float32, kernel against plain on the same inputs):
+* forward: p99.99 |diff| <= 1e-4 everywhere, and max |diff| <= 2e-2 in
+  blending mode. The two round the pdf and the transmittance product
+  differently, so a pixel whose alpha lies within rounding of
+  alpha_threshold can be gated differently: that moves a blended pixel by
+  at most alpha_threshold times a feature, but in quantile mode it can
+  select another point outright.
+* backward slot rows: per row, p99.99 |diff| <= 1e-4 and max |diff| <=
+  1e-2 relative to the row's largest |plain| value: the two add a slot's
+  pixels and the running sum C in different orders, and E - C cancels
+  where a pixel has little weight left.
+* segment sums: max |diff| <= 1e-5 of the row's largest |plain| value
+  (sums of a few slots, in another order).
 
 Exits non-zero, with no result line, when there is no CUDA device, when
 the port's package is not beside this script, or when any phase fails.
@@ -41,7 +66,9 @@ is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -49,10 +76,19 @@ import time
 
 import torch
 
-KERNEL_SOURCE = "taichi_gaussian_rasterizer_tpu_torch/csrc/raster_forward.cu"
-REPLACES = "taichi_gaussian_rasterizer_tpu/ops/raster/forward.py:75"
+CSRC = "taichi_gaussian_rasterizer_tpu_torch/csrc/"
+KERNELS = {   # name: (source, the TPU kernel it replaces)
+    "raster_forward": (CSRC + "raster_forward.cu",
+                       "taichi_gaussian_rasterizer_tpu/ops/raster/forward.py:75"),
+    "raster_backward": (CSRC + "raster_backward.cu",
+                        "taichi_gaussian_rasterizer_tpu/ops/raster/backward.py:83"),
+    "segment_sum": (CSRC + "segment_sum.cu",
+                    "taichi_gaussian_rasterizer_tpu/ops/raster/reduce.py:37"),
+}
 TOL_P9999 = 1e-4
 TOL_MAX_BLENDING = 2e-2
+TOL_ROWS_MAX = 1e-2
+TOL_SEGMENT = 1e-5
 
 
 def card_line() -> str:
@@ -105,6 +141,43 @@ def check_close(label: str, got, want, blending: bool):
   return mx
 
 
+def check_rows(label: str, got, want):
+  """Slot rows (R, K): per row, (max, p99.99) of |diff| relative to the
+  row's largest |want|; asserts the backward tolerance. Returns the
+  largest absolute |diff|."""
+  scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+  rel = ((got - want).abs() / scale).sort(dim=1).values
+  mx = float(rel[:, -1].max())
+  p = float(rel[:, int(0.9999 * (rel.shape[1] - 1))].max())
+  ok = p <= TOL_P9999 and mx <= TOL_ROWS_MAX
+  print(f"  {label}: {got.shape[0]} rows x {got.shape[1]} slots, relative max "
+        f"|diff| {mx:.3e}, p99.99 {p:.3e} ({'within' if ok else 'OUTSIDE'} "
+        f"tolerance)")
+  if not ok:
+    raise AssertionError(f"{label}: backward kernel and plain version disagree")
+  return float((got - want).abs().max())
+
+
+def check_segment_sums(label: str, got, want):
+  scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+  rel = float(((got - want).abs() / scale).max())
+  ok = rel <= TOL_SEGMENT
+  print(f"  {label}: relative max |diff| {rel:.3e} "
+        f"({'within' if ok else 'OUTSIDE'} tolerance)")
+  if not ok:
+    raise AssertionError(f"{label}: segment-sum kernel and plain disagree")
+  return float((got - want).abs().max())
+
+
+def ptxas_summary(log: str) -> str:
+  regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+  spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+  if not regs:
+    return "no ptxas output (already built)"
+  return (f"{len(regs)} entries, {min(regs)}-{max(regs)} registers, "
+          f"spill stores {min(spills)}-{max(spills)} bytes")
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   parser.add_argument("--n", type=int, default=1_000_000,
@@ -120,15 +193,26 @@ def main() -> int:
 
   import taichi_gaussian_rasterizer_tpu_torch as tgr
   from taichi_gaussian_rasterizer_tpu_torch.ops import lib
-  from taichi_gaussian_rasterizer_tpu_torch.ops.raster import forward, tiles
+  from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
+      backward, forward, reduce, reduce_slots_by_point, tiles)
+  from taichi_gaussian_rasterizer_tpu_torch.utils.cuda_build import load_all
   from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import (
       random_3d_gaussians, random_camera)
 
   torch.backends.cuda.matmul.allow_tf32 = False   # the plain version's einsum
   torch.backends.cudnn.allow_tf32 = False
   dev = torch.device("cuda")
-  kernel = forward.RASTER_FORWARD
-  name = torch.cuda.get_device_name(0)
+  kernels = {"raster_forward": forward.RASTER_FORWARD,
+             "raster_backward": backward.RASTER_BACKWARD,
+             "segment_sum": reduce.SEGMENT_SUM}
+
+  def reset_counts():
+    for k in kernels.values():
+      k.launch_count = 0
+
+  def counts():
+    return {name: k.launch_count for name, k in kernels.items()}
+  device_name = torch.cuda.get_device_name(0)
   card = card_line()
 
   def plain_image(points, features, mapping, size, config, tile_ids=None):
@@ -148,12 +232,13 @@ def main() -> int:
   # ---- phase 1: build --------------------------------------------------
   print(f"[1 build] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
-  kernel.load()
-  print(f"[1 build] nvcc built {KERNEL_SOURCE} for sm_90a in "
-        f"{kernel.build_seconds:.1f} s")
-  for line in kernel.build_log.splitlines():
-    if "registers" in line or "spill" in line or "Compiling entry" in line:
-      print(f"  ptxas: {line.strip()}")
+  t0 = time.perf_counter()
+  load_all(list(kernels.values()))
+  print(f"[1 build] nvcc built the three sources for sm_90a in parallel in "
+        f"{time.perf_counter() - t0:.1f} s")
+  for name, k in kernels.items():
+    print(f"  {KERNELS[name][0]}: {k.build_seconds:.1f} s; ptxas: "
+          f"{ptxas_summary(k.build_log)}")
 
   with torch.no_grad():
     # ---- phase 2: kernel against plain, all four modes -----------------
@@ -192,6 +277,47 @@ def main() -> int:
                                            size2, cfg), reps=3)
         print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
 
+    # ---- phase 2b: backward kernels against plain -----------------------
+    gen_g = torch.Generator(device=dev).manual_seed(3)
+    g_img2 = torch.randn((size2[1], size2[0], 3), generator=gen_g, device=dev)
+    g_w2 = torch.randn((size2[1], size2[0]), generator=gen_g, device=dev)
+    print(f"[2b backward vs plain] phase 2's scene, seeded cotangent image "
+          f"and weight")
+    for antialias in (False, True):
+      for extra in (False, True):
+        cfg = config2.replace(antialias=antialias)
+        image, weight = forward.rasterize_forward(points2, features2, mapping2,
+                                                  size2, cfg)
+        bw2 = (points2, features2, mapping2, cfg, image, weight, g_img2, g_w2,
+               extra, extra)
+        got = backward.rasterize_backward(*bw2)
+        torch.cuda.synchronize()
+        want = backward.raster_backward_plain(*bw2)
+        label = (f"{'antialias' if antialias else 'conic'}"
+                 f"{' + heuristic + visibility rows' if extra else ''}")
+        check_rows(label, got, want)
+        again = backward.rasterize_backward(*bw2)
+        assert torch.equal(got, again), f"{label}: two backward runs differ"
+        k_ms = cuda_ms(lambda: backward.rasterize_backward(*bw2), reps=20)
+        p_ms = cuda_ms(lambda: backward.raster_backward_plain(*bw2), reps=2)
+        print(f"    bitwise identical on a second run; kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms")
+        if not antialias and not extra:
+          slots2 = got
+    keys2, order2 = torch.sort(mapping2.overlap_to_point, stable=True)
+    grouped2 = slots2.index_select(1, order2)
+    got = reduce.segment_sums_by_sorted_key(keys2, grouped2,
+                                            mapping2.point_offsets, n2)
+    check_segment_sums("segment sums of the conic rows", got,
+                       reduce.segment_sums_plain(keys2, grouped2, n2))
+    assert torch.equal(got, reduce.segment_sums_by_sorted_key(
+        keys2, grouped2, mapping2.point_offsets, n2)), "two reductions differ"
+    k_ms = cuda_ms(lambda: reduce.segment_sums_cuda(
+        grouped2, mapping2.point_offsets, n2), reps=20)
+    p_ms = cuda_ms(lambda: reduce.segment_sums_plain(keys2, grouped2, n2), reps=5)
+    print(f"    bitwise identical on a second run; kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms")
+
     # ---- phase 3: the slice at full size -------------------------------
     width, height = args.size
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -201,7 +327,7 @@ def main() -> int:
     print(f"[3 render] {args.n} gaussians @{width}x{height}, RGB, "
           f"RasterConfig() defaults")
 
-    kernel.launch_count = 0
+    reset_counts()
     frame_ms = []
     for _ in range(5):
       torch.cuda.synchronize()
@@ -209,9 +335,10 @@ def main() -> int:
       r = tgr.render_gaussians(scene, camera, config)
       torch.cuda.synchronize()
       frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = kernel.launch_count
-    print(f"  launches of the kernel in 5 renders: {launches}")
-    assert launches == 5, f"expected one kernel launch per render, got {launches}"
+    launches = counts()
+    print(f"  launches in 5 renders: {launches}")
+    assert launches == {"raster_forward": 5, "raster_backward": 0,
+                        "segment_sum": 0}, launches
 
     assert r.image.shape == (height, width, 3) and r.image.is_cuda
     assert torch.isfinite(r.image).all() and torch.isfinite(r.image_weight).all()
@@ -237,7 +364,7 @@ def main() -> int:
         config.tile_size)[ids.to(dev)] > 0
     want = plain_image(points, scene.feature, mapping, (width, height), config,
                        tile_ids=ids.tolist())
-    max_err = check_close("64 seeded tiles, render vs plain",
+    fwd_err = check_close("64 seeded tiles, render vs plain",
                           rendered, want * inside, blending=True)
     print(f"  ms/frame median {statistics.median(frame_ms):.3f} "
           f"(5 renders: {', '.join(f'{t:.3f}' for t in frame_ms)})")
@@ -249,12 +376,12 @@ def main() -> int:
         points, features, mapping, (width, height), config), 5)
     print(f"  frame split (host clock, synchronised, median of 5): projection "
           f"{proj_ms:.3f} ms, mapper {map_ms:.3f} ms, raster {raster_ms:.3f} ms")
-    k_ms = cuda_ms(lambda: forward.rasterize_forward(
+    fwd_ms = cuda_ms(lambda: forward.rasterize_forward(
         points, features, mapping, (width, height), config), reps=10)
-    p_ms = cuda_ms(lambda: plain_image(points, features, mapping,
-                                       (width, height), config), reps=1)
-    print(f"  raster over the whole frame (CUDA events): kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms; peak device memory "
+    fwd_plain_ms = cuda_ms(lambda: plain_image(points, features, mapping,
+                                               (width, height), config), reps=1)
+    print(f"  raster over the whole frame (CUDA events): kernel {fwd_ms:.4f} ms, "
+          f"plain {fwd_plain_ms:.4f} ms; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # ---- phase 4: the serving configuration ----------------------------
@@ -262,7 +389,7 @@ def main() -> int:
     scene_sh = random_3d_gaussians(gen, args.n, camera, sh_degree=3)
     print(f"[4 serve] {args.n} gaussians @{width}x{height}, SH degree 3, "
           f"render_depth, render_median_depth")
-    kernel.launch_count = 0
+    reset_counts()
     sh_ms = []
     for _ in range(3):
       torch.cuda.synchronize()
@@ -271,26 +398,151 @@ def main() -> int:
                                render_depth=True, render_median_depth=True)
       torch.cuda.synchronize()
       sh_ms.append((time.perf_counter() - t0) * 1e3)
-    assert kernel.launch_count == 6, kernel.launch_count
+    assert counts()["raster_forward"] == 6, counts()
     for field in ("image", "image_weight", "depth", "depth_var", "median_depth"):
       value = getattr(r, field)
       assert value.shape[:2] == (height, width), (field, value.shape)
       assert torch.isfinite(value).all(), field
     covered = r.image_weight > 0.5
-    print(f"  launches {kernel.launch_count} in 3 renders; median depth "
+    print(f"  launches {counts()['raster_forward']} in 3 renders; median depth "
           f"{float(r.median_depth[covered].median()):.3f}, blended depth "
           f"{float(r.depth[covered].median()):.3f} over {float(covered.float().mean()):.3f} "
           f"of pixels")
     print(f"  ms/frame median {statistics.median(sh_ms):.3f} "
           f"(3 renders: {', '.join(f'{t:.3f}' for t in sh_ms)})")
 
+  # ---- phase 5: the training frame at full size --------------------------
+  fields = [f.name for f in dataclasses.fields(tgr.Gaussians3D)]
+  params = {name: getattr(scene, name).detach().clone().requires_grad_()
+            for name in fields}
+  g_image = torch.randn((height, width, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+  lr = 1e-6
+  print(f"[5 train] {args.n} gaussians @{width}x{height}, RGB, RasterConfig(); "
+        f"loss sum(image * G), G seeded normal; SGD lr {lr}")
+
+  def sgd(grads):
+    with torch.no_grad():
+      for name, p in params.items():
+        p -= lr * grads[name]
+
+  torch.cuda.reset_peak_memory_stats()
+  reset_counts()
+  step_ms = []
+  for _ in range(5):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = tgr.render_gaussians(tgr.Gaussians3D(**params), camera, config)
+    (r.image * g_image).sum().backward()
+    grads = {name: p.grad for name, p in params.items()}
+    sgd(grads)
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+    for name, g in grads.items():
+      assert torch.isfinite(g).all(), f"non-finite gradient of {name}"
+      assert g.abs().sum() > 0, f"zero gradient of {name}"
+      params[name].grad = None
+  train_launches = counts()
+  print(f"  launches in 5 steps: {train_launches}")
+  assert all(v == 5 for v in train_launches.values()), train_launches
+  print("  finite, non-zero gradients on "
+        + ", ".join(f"{name} (max |g| {float(g.abs().max()):.3e})"
+                    for name, g in grads.items()))
+  train_peak = torch.cuda.max_memory_allocated() / 2**30
+
+  with torch.no_grad():
+    scene_now = tgr.Gaussians3D(**{k: v.detach() for k, v in params.items()})
+    features = scene_now.feature
+    points, mapping = project_and_map(scene_now, camera, config)
+    image, weight = forward.rasterize_forward(points, features, mapping,
+                                              (width, height), config)
+    bw_args = (points, features, mapping, config, image, weight, g_image,
+               torch.zeros_like(weight))
+    slots = backward.rasterize_backward(*bw_args)
+    print(f"  after the 5 steps: {int(mapping.total_overlaps)} overlaps in "
+          f"{slots.shape[1]} candidate slots")
+    n_tiles = mapping.tile_ranges.shape[0]
+    ids = torch.randperm(n_tiles, generator=torch.Generator().manual_seed(65))[:64]
+    want = backward.raster_backward_plain(*bw_args, tile_ids=ids.tolist())
+    sel = torch.zeros(slots.shape[1], dtype=torch.bool, device=dev)
+    for start, end in mapping.tile_ranges[ids.to(dev)].tolist():
+      sel[start:end] = True
+    bwd_err = check_rows(f"64 seeded tiles ({int(sel.sum())} slots), backward "
+                         f"kernel vs plain", slots[:, sel], want[:, sel])
+    keys, order = torch.sort(mapping.overlap_to_point, stable=True)
+    grouped = slots.index_select(1, order)
+    seg_err = check_segment_sums(
+        "whole frame, segment-sum kernel vs plain",
+        reduce.segment_sums_cuda(grouped, mapping.point_offsets, args.n),
+        reduce.segment_sums_plain(keys, grouped, args.n))
+
+    fwd_step_ms = host_ms(
+        lambda: tgr.render_gaussians(scene_now, camera, config), 5)
+    bwd_ms = cuda_ms(lambda: backward.rasterize_backward(*bw_args), reps=10)
+    bwd_plain_ms = cuda_ms(lambda: backward.raster_backward_plain(*bw_args),
+                           reps=1)
+    red_ms = cuda_ms(lambda: reduce_slots_by_point(slots, mapping), reps=10)
+    seg_ms = cuda_ms(lambda: reduce.segment_sums_cuda(
+        grouped, mapping.point_offsets, args.n), reps=20)
+    seg_plain_ms = cuda_ms(lambda: reduce.segment_sums_plain(
+        keys, grouped, args.n), reps=5)
+  step = statistics.median(step_ms)
+  print(f"  ms/step median {step:.3f} (5 steps: "
+        f"{', '.join(f'{t:.3f}' for t in step_ms)})")
+  print(f"  step split: forward render {fwd_step_ms:.3f} ms (host clock, "
+        f"median of 5, no graph); backward raster kernel {bwd_ms:.4f} ms; "
+        f"reduction (sort + gather + segment sum) {red_ms:.4f} ms (CUDA "
+        f"events); the rest -- autograd of projection and SH, the chain, "
+        f"SGD and glue -- {step - fwd_step_ms - bwd_ms - red_ms:.3f} ms by "
+        f"difference")
+  print(f"  backward kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; "
+        f"segment-sum kernel {seg_ms:.4f} ms, plain {seg_plain_ms:.4f} ms "
+        f"(whole frame, CUDA events; {slots.shape[0]} rows x "
+        f"{slots.shape[1]} slots); peak device memory in the 5 steps "
+        f"{train_peak:.2f} GiB")
+
+  # ---- phase 6: training mode -------------------------------------------
+  print(f"[6 training mode] render_with_heuristics, same size")
+  scene_now = tgr.Gaussians3D(**{k: v.detach() for k, v in params.items()})
+  reset_counts()
+  heur_ms = []
+  for _ in range(3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads6, r = tgr.render_with_heuristics(
+        lambda r: (r.image * g_image).sum(), scene_now, camera, config)
+    with torch.no_grad():
+      scene_now = tgr.Gaussians3D(**{
+          name: getattr(scene_now, name) - lr * getattr(grads6, name)
+          for name in fields})
+    torch.cuda.synchronize()
+    heur_ms.append((time.perf_counter() - t0) * 1e3)
+  mode_launches = counts()
+  assert all(v == 3 for v in mode_launches.values()), mode_launches
+  assert torch.isfinite(r.point_heuristic).all() and (r.point_heuristic >= 0).all()
+  assert torch.isfinite(r.point_visibility).all() and (r.point_visibility >= 0).all()
+  assert all(torch.isfinite(getattr(grads6, name)).all() for name in fields)
+  print(f"  launches in 3 steps: {mode_launches}; loss {float(loss):.4f}; "
+        f"{int(r.visible_mask.sum())} points visible, prune cost max "
+        f"{float(r.prune_cost.max()):.3e}, split score max "
+        f"{float(r.split_score.max()):.3e}")
+  print(f"  ms/step median {statistics.median(heur_ms):.3f} (3 steps: "
+        f"{', '.join(f'{t:.3f}' for t in heur_ms)})")
+
+  measured = {
+      "raster_forward": (train_launches, fwd_err, fwd_ms, fwd_plain_ms),
+      "raster_backward": (train_launches, bwd_err, bwd_ms, bwd_plain_ms),
+      "segment_sum": (train_launches, seg_err, seg_ms, seg_plain_ms),
+  }
   print(card_line())
-  print(json.dumps({"kernels": [{
-      "name": "raster_forward", "route": "cuda", "source": KERNEL_SOURCE,
-      "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-      "ms": k_ms, "plain_ms": p_ms}]}))
+  print(json.dumps({"kernels": [
+      {"name": name, "route": "cuda", "source": KERNELS[name][0],
+       "replaces": KERNELS[name][1], "launches": launch[name],
+       "max_abs_err": err, "ms": ms, "plain_ms": plain}
+      for name, (launch, err, ms, plain) in measured.items()]}))
   print(json.dumps({"ok": True, "device": {
-      "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+      "platform": "gpu", "kind": device_name,
+      "count": torch.cuda.device_count()}}))
   return 0
 
 

@@ -2,11 +2,13 @@
 `taichi_gaussian_rasterizer_tpu`.
 
 The module layout mirrors the JAX package's, so each module's counterpart
-is found under the same name. This first slice is the forward render
-path: project -> SH shading -> tile map -> forward rasterize, with a
-hand-written CUDA kernel (`csrc/raster_forward.cu`, built with nvcc for
-Hopper at first use) for CUDA tensors and its plain PyTorch version for
-CPU tensors. Imports torch, never jax.
+is found under the same name. The port covers the forward render path
+(project -> SH shading -> tile map -> forward rasterize) and the training
+frame (the backward raster pass, the per-point gradient reduction and
+training mode's heuristic and visibility sinks). Each TPU kernel is a
+hand-written CUDA kernel (`csrc/*.cu`, built with nvcc for Hopper at
+first use) for CUDA tensors, with its plain PyTorch version for CPU
+tensors. Imports torch, never jax.
 """
 
 __version__ = "0.1.0"
@@ -16,7 +18,8 @@ from .data_types import Gaussians2D, Gaussians3D, check_packed2d
 from .ops import CameraParams, evaluate_sh_at, project_points, project_to_image
 from .ops.mapper import TileMapping, map_to_tiles
 from .ops.raster import RasterOut, rasterize, rasterize_with_tiles
-from .models import Rendering, render_gaussians, render_projected
+from .models import (Rendering, render_gaussians, render_projected,
+                     render_with_heuristics, viewspace_gradient)
 
 __all__ = [
     "RasterConfig",
@@ -35,4 +38,6 @@ __all__ = [
     "Rendering",
     "render_gaussians",
     "render_projected",
+    "render_with_heuristics",
+    "viewspace_gradient",
 ]

@@ -6,22 +6,29 @@ shape the TPU kernels or XLA's static shapes are kept, so that configs
 carry over unchanged, and have no effect in this package:
 
 * ``points_per_chunk`` -- the TPU kernels stage this many gaussians per
-  VMEM chunk. The CUDA forward kernel stages one batch of
+  VMEM chunk. The CUDA raster kernels stage one batch of
   ``tile_size**2`` gaussians per thread block instead.
-* ``saturation_early_exit`` -- the CUDA kernel always stops a tile once
+* ``saturation_early_exit`` -- the CUDA kernels always stop a tile once
   every pixel has saturated; the blend gates make that exit exact, so
   the output is the same either way.
 * ``exact_features`` -- the port never packs features as bf16 pairs;
   features are always blended at full precision.
-* ``exact_slot_gradients`` -- concerns the backward kernel, which this
-  package does not have yet (ROADMAP queue 2 item 2).
-* ``deterministic`` -- the port's mapper always sorts stably, so ties
-  in (tile, depth) always blend in a reproducible order.
+* ``exact_slot_gradients`` -- the port never packs the backward's slot
+  gradient rows as bf16 pairs; they are always full precision.
+
+``deterministic`` holds whatever its value: the mapper sorts stably, so
+ties in (tile, depth) blend in a reproducible order, and the gradients
+are reproducible bit for bit -- the backward kernel writes each slot's
+row once, the reduction sorts stably and sums each point's slots in
+order, and no kernel uses atomics.
 
 ``max_tile_span`` is honoured with the JAX mapper's clamp-and-flag
-semantics, so overlap sets match it. ``compute_visibility`` and
-``compute_point_heuristic`` are not ported yet: the rasterizer raises
-`NotImplementedError` when either is set.
+semantics, so overlap sets match it. ``compute_point_heuristic`` adds
+the heuristic rows to the backward, delivered through a heuristic sink
+next to a visibility sink (`rasterize_with_tiles`). The forward's
+per-point visibility is not ported yet: ``compute_visibility``, and
+``compute_point_heuristic`` without a visibility sink, raise
+`NotImplementedError`.
 """
 
 from dataclasses import dataclass, replace

@@ -19,12 +19,14 @@
 // HBM3 at 700 W, about a tenth of the card's FP32 rate by that count, so
 // neither the arithmetic rate nor memory bounds it; the likely bound (not
 // measured) is the latency of the dependent per-pixel loop at the
-// occupancy its 53-56 registers a thread allow, and the longest bins.
+// occupancy its 53-61 registers a thread allow, and the longest bins.
 // Design: one thread block per tile, one thread per pixel; the block stages
 // a batch of blockDim points into shared memory (one global read per point
 // per tile, then broadcast reads by every pixel); a pixel stops once its
 // saturation gate has closed, and the block stops once every pixel has
-// (__syncthreads_count) -- exact, because the gate never reopens.
+// (__syncthreads_count) -- exact, because the gate never reopens. The pdf,
+// gate and transmittance arithmetic lives in raster_common.cuh, shared with
+// the backward kernel, whose replay must stop exactly where this pass did.
 //
 // C interface (bound with ctypes; pointers are device pointers):
 //   int tgr_raster_forward(points (N,7) f32, features (N,F) f32,
@@ -36,20 +38,11 @@
 //                          stream)
 // returns the cudaError_t of the launch (0 on success).
 
-#include <cuda_runtime.h>
+#include "raster_common.cuh"
+
+using namespace tgr;
 
 namespace {
-
-constexpr int kMaxFeatures = 16;
-constexpr int kPointRows = 7;   // staged floats per point (see stage_point)
-constexpr float kLogAlphaFloor = -1e4f;
-constexpr float kTwoPi = 6.283185307179586f;
-
-__device__ __forceinline__ float approx_cdf(float x, float s) {
-  // sigmoid approximation of the gaussian CDF
-  const float z = x / s;
-  return 1.0f / (1.0f + expf(-(1.6f * z + 0.07f * z * z * z)));
-}
 
 template <bool kAntialias, bool kBlending>
 __global__ void __launch_bounds__(1024)
@@ -97,25 +90,8 @@ raster_forward_kernel(const float* __restrict__ points,
 
     if (tid < count) {
       const int idx = overlap_to_point[base + tid];
-      const float* p = points + static_cast<long long>(idx) * 7;
-      const float mx = p[0] - ox, my = p[1] - oy;
-      const float ax = p[2], ay = p[3], sx = p[4], sy = p[5], pa = p[6];
-      s_pt[0 * batch + tid] = mx;
-      s_pt[1 * batch + tid] = my;
-      if (kAntialias) {
-        s_pt[2 * batch + tid] = ax;
-        s_pt[3 * batch + tid] = ay;
-        s_pt[4 * batch + tid] = sx;
-        s_pt[5 * batch + tid] = sy;
-        s_pt[6 * batch + tid] = pa;
-      } else {
-        // conic form: u^2 + v^2 = d^T Q d, Q = R diag(sx, sy)^-2 R^T
-        const float isx2 = 1.0f / (sx * sx), isy2 = 1.0f / (sy * sy);
-        s_pt[2 * batch + tid] = ax * ax * isx2 + ay * ay * isy2;
-        s_pt[3 * batch + tid] = ax * ay * (isx2 - isy2);
-        s_pt[4 * batch + tid] = ay * ay * isx2 + ax * ax * isy2;
-        s_pt[5 * batch + tid] = fmaxf(logf(fmaxf(pa, 0.0f)), kLogAlphaFloor);
-      }
+      stage_point<kAntialias>(points + static_cast<long long>(idx) * 7, ox, oy,
+                              s_pt, batch, tid);
       const float* feat = features + static_cast<long long>(idx) * num_features;
       for (int f = 0; f < num_features; ++f) s_feat[f * batch + tid] = feat[f];
     }
@@ -123,33 +99,18 @@ raster_forward_kernel(const float* __restrict__ points,
 
     if (done) continue;
     for (int j = 0; j < count; ++j) {
-      const float dx = cx - s_pt[0 * batch + j];
-      const float dy = cy - s_pt[1 * batch + j];
-      float a_raw;
-      if (kAntialias) {
-        const float ax = s_pt[2 * batch + j], ay = s_pt[3 * batch + j];
-        const float sx = s_pt[4 * batch + j], sy = s_pt[5 * batch + j];
-        const float tu = dx * ax + dy * ay;
-        const float tv = dy * ax - dx * ay;
-        const float ix = sx * (approx_cdf(tu + 0.5f, sx) - approx_cdf(tu - 0.5f, sx));
-        const float iy = sy * (approx_cdf(tv + 0.5f, sy) - approx_cdf(tv - 0.5f, sy));
-        a_raw = s_pt[6 * batch + j] * (kTwoPi * ix * iy);
-      } else {
-        const float qa = s_pt[2 * batch + j], qb = s_pt[3 * batch + j];
-        const float qc = s_pt[4 * batch + j];
-        a_raw = expf(s_pt[5 * batch + j]
-                     - 0.5f * (qa * dx * dx + 2.0f * qb * dx * dy + qc * dy * dy));
-      }
+      AntialiasTerms terms;
+      const float a_raw = alpha_raw<kAntialias>(s_pt, batch, j, cx, cy, &terms);
       // below the threshold the gated alpha is 0: no weight, T unchanged
       if (!(a_raw > alpha_threshold)) continue;
       const float a = fminf(a_raw, clamp_max_alpha);
-      const float total_before = 1.0f - T;
+      const float total_before = one_minus(T);
       float w;
       if (kBlending) {
-        w = total_before < saturate_threshold ? a * T : 0.0f;
+        w = total_before < saturate_threshold ? __fmul_rn(a, T) : 0.0f;
         alpha_acc += w;
       } else {
-        const float total_after = 1.0f - T * (1.0f - a);
+        const float total_after = one_minus(transmit(T, a));
         w = (total_before < c && total_after >= c) ? 1.0f : 0.0f;
         alpha_acc += a * T;
       }
@@ -157,9 +118,9 @@ raster_forward_kernel(const float* __restrict__ points,
       for (int f = 0; f < kMaxFeatures; ++f) {
         if (f < num_features) acc[f] += w * s_feat[f * batch + j];
       }
-      T *= 1.0f - a;
+      T = transmit(T, a);
       // T never grows, so once the gate is closed it stays closed
-      if (!(1.0f - T < stop)) {
+      if (stopped(T, stop)) {
         done = true;
         break;
       }
@@ -230,8 +191,4 @@ extern "C" int tgr_raster_forward(
                              num_tiles, tiles_x, tile_size, width, height,
                              num_features, alpha_threshold, clamp_max_alpha,
                              saturate_threshold, image, weight, s);
-}
-
-extern "C" const char* tgr_error_string(int status) {
-  return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

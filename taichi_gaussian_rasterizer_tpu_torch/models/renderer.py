@@ -1,20 +1,24 @@
-"""3D gaussian renderer, forward path (port of
+"""3D gaussian renderer (port of
 `taichi_gaussian_rasterizer_tpu.models.renderer`).
 
 project -> shade (SH or raw features) -> tile map -> rasterize, with depth
 and depth^2 riding the blend as two prepended channels, and median depth
 from a second, non-blending pass at saturate_threshold = 0.5 over the same
-tile mapping.
+tile mapping. The render is differentiable: `loss.backward()` after
+`render_gaussians` gives gradients for every `Gaussians3D` tensor.
+`render_with_heuristics` is the training-mode step: it returns the loss,
+the gradients and a rendering whose per-point heuristics and visibility
+are filled in from the backward pass.
 
-Not ported yet: `render_with_heuristics` and `viewspace_gradient` (training
-mode, ROADMAP queue 1 item 9); the heuristic/visibility sinks and
-`use_depth16` raise `NotImplementedError`. `capacity`, `emit_tails`,
-`reduce_capacity` and `visit_chunks`/`visit_capacity` are XLA static-shape
-knobs and are not part of these signatures.
+Not ported yet: the forward's per-point visibility (`compute_visibility`,
+ROADMAP queue 1 item 9b) and `use_depth16` (item 10), which raise
+`NotImplementedError`. `capacity`, `emit_tails`, `reduce_capacity` and
+`visit_chunks`/`visit_capacity` are XLA static-shape knobs and are not
+part of these signatures.
 """
 
-from dataclasses import dataclass, replace
-from typing import Optional, Tuple
+from dataclasses import dataclass, fields, replace
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -29,7 +33,8 @@ from ..ops.sh import evaluate_sh_at
 
 @dataclass(frozen=True)
 class Rendering:
-  """Renderer outputs."""
+  """Renderer outputs. point_heuristic (prune cost, split score) and
+  point_visibility are filled in by `render_with_heuristics`."""
   image: torch.Tensor                 # (H, W, C)
   image_weight: torch.Tensor          # (H, W) accumulated alpha
   points_in_view: torch.Tensor        # (N,) bool mask
@@ -37,8 +42,8 @@ class Rendering:
   gaussians2d: torch.Tensor           # (N, 7)
   camera: CameraParams
   config: RasterConfig
-  point_visibility: Optional[torch.Tensor] = None   # training mode (not ported)
-  point_heuristic: Optional[torch.Tensor] = None    # training mode (not ported)
+  point_visibility: Optional[torch.Tensor] = None   # (N,) via visibility sink
+  point_heuristic: Optional[torch.Tensor] = None    # (N, 2) via heuristic sink
   depth: Optional[torch.Tensor] = None              # (H, W)
   depth_var: Optional[torch.Tensor] = None          # (H, W)
   median_depth: Optional[torch.Tensor] = None       # (H, W)
@@ -75,6 +80,25 @@ class Rendering:
   @property
   def point_radii(self):
     return torch.amax(self.point_scale, dim=1)
+
+  @property
+  def prune_cost(self):
+    return self._heuristic()[:, 0]
+
+  @property
+  def split_score(self):
+    return self._heuristic()[:, 1]
+
+  @property
+  def visible_mask(self):
+    if self.point_visibility is None:
+      raise ValueError("no visibility: render with render_with_heuristics")
+    return self.point_visibility > 0
+
+  def _heuristic(self):
+    if self.point_heuristic is None:
+      raise ValueError("no point heuristic: render with render_with_heuristics")
+    return self.point_heuristic
 
   @property
   def image_size(self) -> Tuple[int, int]:
@@ -123,8 +147,11 @@ def render_projected(in_view: torch.Tensor, gaussians2d: torch.Tensor,
   median_depth = None
   if render_median_depth:
     d = ndc_depths if use_ndc_depth else depths
+    # forward only: the training-mode outputs belong to the main pass
     median_cfg = config.replace(use_alpha_blending=False,
-                                saturate_threshold=0.5)
+                                saturate_threshold=0.5,
+                                compute_point_heuristic=False,
+                                compute_visibility=False)
     raster_median = rasterize_with_tiles(
         gaussians2d.detach(), d.detach().contiguous(), mapping,
         camera_params.image_size, median_cfg)
@@ -182,3 +209,48 @@ def render_gaussians(gaussians: Gaussians3D,
       render_depth=render_depth, use_depth16=use_depth16,
       render_median_depth=render_median_depth,
       heuristic_sink=heuristic_sink, visibility_sink=visibility_sink)
+
+
+def render_with_heuristics(loss_fn: Callable[[Rendering], torch.Tensor],
+                           gaussians: Gaussians3D,
+                           camera_params: CameraParams,
+                           config: RasterConfig,
+                           **render_kwargs):
+  """Render, take the loss and run its backward pass in one call.
+
+  The per-point heuristics (prune cost, split score) and visibility are
+  the gradients of zero sinks the render takes (the JAX package's
+  functional design); this wires them up, with
+  config.compute_point_heuristic set, and differentiates the loss with
+  respect to the given gaussians' values, like `jax.value_and_grad`: the
+  gradients are returned and the gaussians' own `.grad` is left alone.
+
+  Args:
+    loss_fn: Rendering -> scalar loss
+    render_kwargs: passed on to render_gaussians (use_sh, render_depth, ...)
+
+  Returns:
+    (loss, grads (Gaussians3D of gradients), rendering with
+    point_heuristic and point_visibility filled in)
+  """
+  cfg = config.replace(compute_point_heuristic=True)
+  leaves = {f.name: getattr(gaussians, f.name).detach().requires_grad_()
+            for f in fields(gaussians)}
+  pos = leaves["position"]
+  sink = pos.new_zeros(pos.shape[0], 2, requires_grad=True)
+  vsink = pos.new_zeros(pos.shape[0], requires_grad=True)
+  rendering = render_gaussians(Gaussians3D(**leaves), camera_params, cfg,
+                               heuristic_sink=sink, visibility_sink=vsink,
+                               **render_kwargs)
+  loss = loss_fn(rendering)
+  *grads, heuristic, visibility = torch.autograd.grad(
+      loss, [*leaves.values(), sink, vsink])
+  grads = Gaussians3D(**dict(zip(leaves, grads)))
+  return loss.detach(), grads, rendering.replace(
+      point_heuristic=heuristic, point_visibility=visibility)
+
+
+def viewspace_gradient(grad_gaussians2d: torch.Tensor) -> torch.Tensor:
+  """||dL/dxy|| per point from a gradient of the (N, 7) gaussians2d (the
+  classic 3DGS densification signal)."""
+  return torch.linalg.vector_norm(grad_gaussians2d[:, :2], dim=1)

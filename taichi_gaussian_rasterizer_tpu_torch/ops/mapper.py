@@ -19,8 +19,7 @@ Left out, because they exist only for XLA's static shapes on the TPU:
 `capacity` (buffers are sized from the synced total instead),
 `emit_tails`/`probe_emit_tails` and the bucketed emission ladder, and the
 two-level searchsorted. `use_depth16` (16-bit depth keys) is not ported
-yet: ROADMAP queue 1 item 10. `point_offsets` (the per-point segment
-offsets the gradient reduction needs) comes with the backward kernel.
+yet: ROADMAP queue 1 item 10.
 """
 
 from dataclasses import dataclass
@@ -51,6 +50,11 @@ class TileMapping:
   overlaps fill [0, total_overlaps); the candidates the separating-axis
   test rejected trail them with point `point_sentinel` (== N) and tile
   TH*TW, as in the JAX package's sentinel tail.
+
+  point_offsets serves the gradient reduction
+  (raster/function.py reduce_slots_by_point): sorting the slots by
+  overlap_to_point groups them by point, with point i's real overlaps at
+  [point_offsets[i], point_offsets[i+1]) and the sentinels after them.
   """
   overlap_to_point: torch.Tensor  # (K,) int32 point index, or N past the bins
   overlap_to_tile: torch.Tensor   # (K,) int32 tile index, or TH*TW past the bins
@@ -60,6 +64,8 @@ class TileMapping:
   overflow: torch.Tensor          # () bool: a footprint exceeded max_tile_span
                                   # and was clamped
   point_sentinel: int             # == N
+  point_offsets: torch.Tensor     # (N+1,) int32 segment starts in point-
+                                  # sorted slot order, clamped to K
 
 
 def _footprint(points: torch.Tensor, image_size, tile_size: int,
@@ -182,6 +188,12 @@ def map_to_tiles(points: torch.Tensor, depth: torch.Tensor,
       sorted_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=device))
   tile_ranges = torch.stack([bounds[:-1], bounds[1:]], dim=1).to(torch.int32)
 
+  # per-point count of real overlaps (the sentinel bin N is dropped), then
+  # an exclusive scan; the clamp mirrors the JAX mapper's and never binds
+  counts = torch.bincount(overlap_to_point.to(torch.int64), minlength=n + 1)[:n]
+  point_offsets = torch.cat(
+      [counts.new_zeros(1), torch.cumsum(counts, 0)]).clamp(max=n_cand)
+
   return TileMapping(
       overlap_to_point=overlap_to_point,
       overlap_to_tile=sorted_tile,
@@ -189,4 +201,5 @@ def map_to_tiles(points: torch.Tensor, depth: torch.Tensor,
       tile_shape=(th, tw),
       total_overlaps=bounds[-1],
       overflow=fp["clipped"],
-      point_sentinel=n)
+      point_sentinel=n,
+      point_offsets=point_offsets.to(torch.int32))

@@ -2,9 +2,10 @@
 
 Each source under `csrc/` exposes a plain C interface. It is compiled by
 `nvcc` for Hopper (`sm_90a`) into a shared library under the checkout's
-`build/kernels/`, named by a hash of the source and the flags, so an
-unchanged source is built once and a changed one is rebuilt. No PyTorch
-header is included: a build takes seconds, not minutes.
+`build/kernels/`, named by a hash of the source, every header under
+`csrc/` and the flags, so an unchanged source is built once and a change
+to it or to a header it may include is rebuilt. No PyTorch header is
+included: a build takes seconds, not minutes.
 
 Nothing is built or loaded when this module is imported; a build that
 fails (no `nvcc`, a compile error) raises, and nothing falls back.
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -38,13 +40,21 @@ def find_nvcc() -> str:
       "put the CUDA toolkit's nvcc on PATH or set CUDA_HOME")
 
 
+def source_digest(source: str, csrc_dir: Path = CSRC_DIR) -> str:
+  """Hash of csrc/<source>, of every csrc/*.cuh header (name and bytes)
+  and of the flags: the key of the built library."""
+  h = hashlib.sha256((csrc_dir / source).read_bytes())
+  for header in sorted(csrc_dir.glob("*.cuh")):
+    h.update(header.name.encode() + b"\0" + header.read_bytes())
+  h.update(" ".join(NVCC_FLAGS).encode())
+  return h.hexdigest()[:16]
+
+
 def build(source: str) -> tuple:
   """Compile csrc/<source> into build/kernels/; returns (library path,
   compiler log). The log is empty when the library was already built."""
   src = CSRC_DIR / source
-  digest = hashlib.sha256(
-      src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-  out = BUILD_DIR / f"{src.stem}_{digest}.so"
+  out = BUILD_DIR / f"{src.stem}_{source_digest(source)}.so"
   if out.exists():
     return out, ""
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -97,3 +107,10 @@ class CudaKernel:
       raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {status} "
                          f"({self._error_string(status).decode()})")
     self.launch_count += 1
+
+
+def load_all(kernels: Sequence[CudaKernel]) -> None:
+  """Build and load several kernels at once, one nvcc process each."""
+  with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as pool:
+    for future in [pool.submit(k.load) for k in kernels]:
+      future.result()

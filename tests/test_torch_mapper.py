@@ -1,7 +1,8 @@
 """The port's tile mapper against the JAX mapper.
 
-Exact comparison: every tile's ordered point list, the overlap total and
-the overflow flag must equal the JAX mapper's. N <= 4096 makes the JAX
+Exact comparison: every tile's ordered point list, the overlap total,
+the overflow flag and the per-point segment offsets must equal the JAX
+mapper's. N <= 4096 makes the JAX
 mapper emit every candidate, depths are distinct (ties may order
 differently), and the JAX capacity is large enough that only the
 `max_tile_span` clamp can set `overflow`.
@@ -10,6 +11,7 @@ differently), and the JAX capacity is large enough that only the
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from taichi_gaussian_rasterizer_tpu import RasterConfig as JaxRasterConfig
 from taichi_gaussian_rasterizer_tpu.ops.mapper import map_to_tiles as jax_map_to_tiles
@@ -20,18 +22,15 @@ from taichi_gaussian_rasterizer_tpu_torch.ops.mapper import map_to_tiles
 import torch_port_scenes as scenes
 
 
-def tile_lists(otp, ranges):
-  otp, ranges = scenes.to_numpy(otp), scenes.to_numpy(ranges)
-  return [otp[s:e].tolist() for s, e in ranges]
-
-
-@pytest.mark.parametrize("dtype,image_size,tile_size,n,sigma_range,max_span", [
+CASES = [
     (np.float64, (64, 48), 8, 300, (0.8, 4.0), 16),   # bins of tens of points
     (np.float32, (64, 48), 8, 300, (0.8, 4.0), 16),
     (np.float64, (62, 45), 16, 400, (0.8, 6.0), 16),  # partial edge tiles
     (np.float64, (64, 48), 8, 200, (2.0, 9.0), 3),    # clamped footprints
-])
-def test_mapper_matches_jax(dtype, image_size, tile_size, n, sigma_range, max_span):
+]
+
+
+def map_both(dtype, image_size, tile_size, n, sigma_range, max_span):
   points, depth, _ = scenes.points2d(tile_size + n, n, image_size, sigma_range)
   kw = dict(tile_size=tile_size, max_tile_span=max_span, deterministic=True)
   want = jax_map_to_tiles(jnp.asarray(points, dtype), jnp.asarray(depth, dtype),
@@ -39,6 +38,17 @@ def test_mapper_matches_jax(dtype, image_size, tile_size, n, sigma_range, max_sp
                           capacity=64 * n)
   got = map_to_tiles(scenes.to_torch(points, dtype), scenes.to_torch(depth, dtype),
                      image_size, RasterConfig(**kw))
+  return got, want
+
+
+def tile_lists(otp, ranges):
+  otp, ranges = scenes.to_numpy(otp), scenes.to_numpy(ranges)
+  return [otp[s:e].tolist() for s, e in ranges]
+
+
+@pytest.mark.parametrize("dtype,image_size,tile_size,n,sigma_range,max_span", CASES)
+def test_mapper_matches_jax(dtype, image_size, tile_size, n, sigma_range, max_span):
+  got, want = map_both(dtype, image_size, tile_size, n, sigma_range, max_span)
 
   assert got.tile_shape == want.tile_shape
   total = int(got.total_overlaps)
@@ -54,3 +64,17 @@ def test_mapper_matches_jax(dtype, image_size, tile_size, n, sigma_range, max_sp
   np.testing.assert_array_equal(
       scenes.to_numpy(got.overlap_to_tile)[:total],
       np.repeat(np.arange(len(ranges)), ranges[:, 1] - ranges[:, 0]))
+
+
+@pytest.mark.parametrize("dtype,image_size,tile_size,n,sigma_range,max_span", CASES)
+def test_point_offsets_match_jax(dtype, image_size, tile_size, n, sigma_range,
+                                 max_span):
+  """point_offsets (N+1,): each point's segment in point-sorted slot order,
+  exactly the JAX mapper's; its last entry is the overlap total."""
+  got, want = map_both(dtype, image_size, tile_size, n, sigma_range, max_span)
+  offsets = scenes.to_numpy(got.point_offsets)
+  assert got.point_offsets.dtype == torch.int32 and offsets.shape == (n + 1,)
+  np.testing.assert_array_equal(offsets, np.asarray(want.point_offsets))
+  assert offsets[-1] == int(got.total_overlaps)
+  otp = scenes.to_numpy(got.overlap_to_point)
+  np.testing.assert_array_equal(np.diff(offsets), np.bincount(otp, minlength=n + 1)[:n])

@@ -130,17 +130,42 @@ def test_cpu_autograd_reaches_points_and_features():
 
 @pytest.mark.parametrize("option", [
     "compute_visibility", "compute_point_heuristic", "heuristic_sink",
-    "visibility_sink", "use_depth16", "truncate_mapping", "probe_visit_chunks"])
+    "use_depth16", "truncate_mapping", "probe_visit_chunks"])
 def test_unported_options_raise(option):
+  """The forward's per-point visibility is not ported: compute_visibility,
+  and compute_point_heuristic without a visibility sink (with or without
+  a heuristic sink), raise, as do depth16 keys and truncation."""
   points, depth, feats = scenes.points2d(5, 20, (16, 16))
   pts, d, f = (scenes.to_torch(x) for x in (points, depth, feats))
   config = RasterConfig(tile_size=8)
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     if option in ("compute_visibility", "compute_point_heuristic"):
       rasterize(pts, d, f, (16, 16), config.replace(**{option: True}))
-    elif option.endswith("_sink"):
-      rasterize(pts, d, f, (16, 16), config, **{option: torch.zeros(20)})
+    elif option == "heuristic_sink":
+      rasterize(pts, d, f, (16, 16), config.replace(compute_point_heuristic=True),
+                heuristic_sink=torch.zeros(20, 2, dtype=torch.float64))
     elif option == "use_depth16":
       rasterize(pts, d, f, (16, 16), config, use_depth16=True)
     else:
       getattr(raster_function, option)()
+
+
+@pytest.mark.parametrize("heuristic", [False, True])
+def test_sinks_take_training_outputs(heuristic):
+  """With a visibility sink, the sinks' gradients are the training-mode
+  outputs: visibility always, heuristics with compute_point_heuristic
+  (no gradient without it)."""
+  points, depth, feats = scenes.points2d(6, 60, (32, 24))
+  pts = scenes.to_torch(points).requires_grad_()
+  hs = torch.zeros(60, 2, dtype=torch.float64, requires_grad=True)
+  vs = torch.zeros(60, dtype=torch.float64, requires_grad=True)
+  config = RasterConfig(tile_size=8, compute_point_heuristic=heuristic)
+  out = rasterize(pts, scenes.to_torch(depth), scenes.to_torch(feats), (32, 24),
+                  config, heuristic_sink=hs, visibility_sink=vs)
+  assert out.point_heuristic is None and out.visibility is None
+  (out.image ** 2).sum().backward()
+  assert (vs.grad >= 0).all() and vs.grad.sum() > 0
+  if heuristic:
+    assert (hs.grad >= 0).all() and hs.grad.sum() > 0
+  else:
+    assert hs.grad is None

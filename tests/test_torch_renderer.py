@@ -1,4 +1,5 @@
-"""The port's whole forward slice (`render_gaussians`) against the JAX
+"""The port's render path (`render_gaussians`, its gradients for every
+`Gaussians3D` tensor, and `render_with_heuristics`) against the JAX
 package, and the port's import hygiene.
 
 Tolerances:
@@ -8,6 +9,12 @@ Tolerances:
 * float32 (JAX with exact_features and deterministic): image and weight
   p99.9 |diff| <= 1e-3 and max |diff| <= 2e-2 -- a gate at
   alpha_threshold can flip on a borderline pixel.
+* gradients, float64 against jax.grad of the JAX render: rtol 1e-6 and
+  atol 1e-8 of the largest |gradient| of each tensor (the raster
+  backward agrees to 1e-7, test_torch_backward; projection and SH add
+  their own float64 rounding); heuristics and visibility the same. Where
+  the JAX render gives a culled point a NaN gradient (its conic chain
+  divides the point's zero sums by its zero sigmas), the port's is 0.
 
 The kernel itself is held against its plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
@@ -25,7 +32,8 @@ import torch
 
 import taichi_gaussian_rasterizer_tpu as tgr_jax
 
-from taichi_gaussian_rasterizer_tpu_torch import RasterConfig, render_gaussians
+from taichi_gaussian_rasterizer_tpu_torch import (
+    RasterConfig, render_gaussians, render_with_heuristics, viewspace_gradient)
 from taichi_gaussian_rasterizer_tpu_torch.ops.mapper import map_to_tiles
 from taichi_gaussian_rasterizer_tpu_torch.ops.raster import forward, tiles
 from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import (
@@ -90,6 +98,91 @@ def test_render_gaussians_float32_matches_jax():
     assert diff.max() <= 2e-2, (name, diff.max())
 
 
+GAUSSIAN_FIELDS = ("position", "log_scaling", "rotation", "alpha_logit", "feature")
+
+
+def _loss_terms(seed):
+  rng = np.random.default_rng(seed)
+  return (rng.normal(size=(SIZE[1], SIZE[0], 3)), rng.normal(size=(SIZE[1], SIZE[0])),
+          rng.normal(size=(SIZE[1], SIZE[0])))
+
+
+def _jax_loss(r, g):
+  import jax.numpy as jnp
+  loss = jnp.sum(r.image * g[0]) + jnp.sum(r.image_weight * g[1])
+  return loss if r.depth is None else loss + jnp.sum(r.depth * g[2])
+
+
+def _torch_loss(r, g):
+  g = [torch.as_tensor(x) for x in g]
+  loss = (r.image * g[0]).sum() + (r.image_weight * g[1]).sum()
+  return loss if r.depth is None else loss + (r.depth * g[2]).sum()
+
+
+def _assert_grad_close(got, want, name):
+  """Rows where the JAX gradient is NaN (culled points: its conic chain
+  divides their zero sums by zero sigmas) are held to 0 instead."""
+  got, want = scenes.to_numpy(got), np.asarray(want)
+  assert np.isfinite(got).all(), name
+  bad = ~np.isfinite(want).reshape(want.shape[0], -1).all(1)
+  assert (got[bad] == 0).all(), name
+  got, want = got[~bad], want[~bad]
+  scale = np.abs(want).max()
+  assert scale > 0, name
+  np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-8 * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("use_sh,render_depth", [(False, True), (True, True),
+                                                 (True, False)])
+def test_render_gradients_float64_match_jax(use_sh, render_depth):
+  """loss.backward() through render_gaussians gives every Gaussians3D
+  tensor the gradient jax.grad gives through the JAX render."""
+  import jax
+  cam = scenes.camera(14, SIZE)
+  g = scenes.gaussians3d(15, 300, cam, sh_degree=2 if use_sh else None)
+  jg, jcam = scenes.jax_scene(cam, g, np.float64)
+  tg, tcam = scenes.torch_scene(cam, g, np.float64)
+  terms = _loss_terms(16)
+  kw = dict(use_sh=use_sh, render_depth=render_depth)
+  want = jax.grad(lambda x: _jax_loss(tgr_jax.render_gaussians(
+      x, jcam, tgr_jax.RasterConfig(tile_size=8, points_per_chunk=8), **kw),
+      terms))(jg)
+  leaves = tg.replace(**{name: getattr(tg, name).requires_grad_()
+                         for name in GAUSSIAN_FIELDS})
+  _torch_loss(render_gaussians(leaves, tcam, RasterConfig(tile_size=8), **kw),
+              terms).backward()
+  for name in GAUSSIAN_FIELDS:
+    _assert_grad_close(getattr(leaves, name).grad, getattr(want, name), name)
+
+
+def test_render_with_heuristics_float64_matches_jax():
+  """loss, gradients, point_heuristic and point_visibility."""
+  cam = scenes.camera(17, SIZE)
+  g = scenes.gaussians3d(18, 300, cam, scale_factor=2.0)
+  jg, jcam = scenes.jax_scene(cam, g, np.float64)
+  tg, tcam = scenes.torch_scene(cam, g, np.float64)
+  terms = _loss_terms(19)
+  want_loss, want_grads, want_r = tgr_jax.render_with_heuristics(
+      lambda r: _jax_loss(r, terms), jg, jcam,
+      tgr_jax.RasterConfig(tile_size=8, points_per_chunk=8), render_depth=True)
+  loss, grads, r = render_with_heuristics(
+      lambda r: _torch_loss(r, terms), tg, tcam, RasterConfig(tile_size=8),
+      render_depth=True)
+  np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-10)
+  for name in GAUSSIAN_FIELDS:
+    _assert_grad_close(getattr(grads, name), getattr(want_grads, name), name)
+    assert getattr(tg, name).grad is None
+  _assert_grad_close(r.point_heuristic, want_r.point_heuristic, "heuristic")
+  _assert_grad_close(r.point_visibility, want_r.point_visibility, "visibility")
+  assert (r.prune_cost >= 0).all() and (r.split_score >= 0).all()
+  assert r.visible_mask.sum() > 0
+
+
+def test_viewspace_gradient():
+  grad = torch.tensor([[3.0, 4.0, 1, 1, 1, 1, 1], [0.0, -2.0, 5, 5, 5, 5, 5]])
+  torch.testing.assert_close(viewspace_gradient(grad), torch.tensor([5.0, 2.0]))
+
+
 def test_render_depth_channels_are_stripped():
   """render_depth prepends depth and depth^2 to the blend and takes them
   off again: the feature image is what a render without depth gives."""
@@ -137,16 +230,17 @@ def _run_python(code, **env):
 
 
 def test_package_imports_without_jax_nvcc_or_triton():
-  """Importing the port pulls in no JAX, and its kernel module imports
+  """Importing the port pulls in no JAX, and its kernel modules import
   (building nothing) on a machine with no nvcc and no triton."""
   out = _run_python(
       "import sys\n"
       "import taichi_gaussian_rasterizer_tpu_torch\n"
-      "from taichi_gaussian_rasterizer_tpu_torch.ops.raster import forward\n"
+      "from taichi_gaussian_rasterizer_tpu_torch.ops.raster import backward, forward, reduce\n"
       "mods = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton')]\n"
-      "print(mods, forward.RASTER_FORWARD._fn, forward.RASTER_FORWARD.launch_count)\n",
+      "ks = (forward.RASTER_FORWARD, backward.RASTER_BACKWARD, reduce.SEGMENT_SUM)\n"
+      "print(mods, *[(k._fn, k.launch_count) for k in ks])\n",
       PATH=os.path.dirname(sys.executable))
-  assert out.split() == ["[]", "None", "0"]
+  assert out.split() == ["[]"] + ["(None,", "0)"] * 3
 
 
 def test_cpu_tensor_takes_the_plain_path():
