@@ -4,9 +4,11 @@ on one NVIDIA GPU.
 
 Builds the port's three CUDA kernels from the checkout's sources, holds
 each against its plain PyTorch version, and drives the serving path,
-`render_gaussians`, and the training frame, `render_gaussians` then
-`loss.backward()`, at the benchmark's size: 1M random gaussians at
-2048x1536. Phases, each printing its lines:
+`render_gaussians` (also with per-point visibility and 16-bit depth
+keys), the training frame, `render_gaussians` then `loss.backward()`, at
+the benchmark's size, 1M random gaussians at 2048x1536, and the 2D
+image-fitting trainer, `fit`, growing to 1M gaussians on a 2048x1536
+target. Phases, each printing its lines:
 
 1. build -- nvcc builds csrc/raster_forward.cu, raster_backward.cu and
    segment_sum.cu for sm_90a, one process each, all at once; prints the
@@ -22,6 +24,10 @@ each against its plain PyTorch version, and drives the serving path,
    without the heuristic and visibility rows; the segment-sum kernel
    against the plain segment sum; two runs of each bitwise identical.
    Prints the relative max and p99.99 |diff| and both versions' times.
+2c. forward visibility against plain -- phase 2's scene, all four modes:
+   the kernel's per-slot visibility against the plain version's, two runs
+   bitwise identical, and in blending mode the per-point sums (kernel 3)
+   adding up to the weight image to relative 1e-5; both versions' times.
 3. the serving slice at full size -- five renders of RGB features with
    `RasterConfig()` defaults, the launch counts set to 0 just before them
    and read just after; checks one forward launch per render, finite
@@ -32,6 +38,12 @@ each against its plain PyTorch version, and drives the serving path,
 4. the serving configuration -- the same size with SH degree-3 features,
    `use_sh`, `render_depth` and `render_median_depth` (two kernel launches
    a frame); checks finite output and prints ms/frame.
+4b. serving with visibility and depth16 -- phase 3's scene, three renders
+   with `RasterConfig(compute_visibility=True)`: one forward and one
+   segment-sum launch a render, visibility >= 0 adding up to the weight
+   image; then three with `use_depth16=True` as well: the same overlap
+   total as the full-depth mapping, and the image's max and p99.99 |diff|
+   against the full-depth render; ms/frame of each.
 5. the training frame at full size -- five steps of render_gaussians,
    loss sum(image * G) with G a seeded normal image, loss.backward() and
    a plain SGD update; checks one launch of each kernel per step and
@@ -42,6 +54,15 @@ each against its plain PyTorch version, and drives the serving path,
    peak device memory.
 6. training mode -- three `render_with_heuristics` steps at the same
    size; checks finite heuristics and visibility >= 0; prints ms/step.
+7. the 2D trainer at full size -- `fit(synthetic_target((2048, 1536)),
+   n=500_000, target=1_000_000, total_iters=60,
+   config=RasterConfig(compute_point_heuristic=True), seed=0)`: epochs of
+   10, 15 and 35 steps with two split/prune rounds. Checks one launch of
+   each kernel a step, 1,000,000 points at the end with every optimizer
+   state row count equal to it, finite parameters and the last epoch's
+   PSNR above the first's; prints each epoch's N, PSNR, loss, median
+   ms/step and split and prune counts, and the peak device memory. The
+   JSON line's launch counts are this phase's.
 
 Tolerances (float32, kernel against plain on the same inputs):
 * forward: p99.99 |diff| <= 1e-4 everywhere, and max |diff| <= 2e-2 in
@@ -56,6 +77,8 @@ Tolerances (float32, kernel against plain on the same inputs):
   where a pixel has little weight left.
 * segment sums: max |diff| <= 1e-5 of the row's largest |plain| value
   (sums of a few slots, in another order).
+* forward visibility: the forward's tolerances above, on the per-slot
+  sums.
 
 Exits non-zero, with no result line, when there is no CUDA device, when
 the port's package is not beside this script, or when any phase fails.
@@ -192,6 +215,8 @@ def main() -> int:
     return 1
 
   import taichi_gaussian_rasterizer_tpu_torch as tgr
+  from taichi_gaussian_rasterizer_tpu_torch.examples import (
+      fit_image_gaussians as fit2d)
   from taichi_gaussian_rasterizer_tpu_torch.ops import lib
   from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
       backward, forward, reduce, reduce_slots_by_point, tiles)
@@ -221,13 +246,13 @@ def main() -> int:
                                            tile_ids=tile_ids)
     return torch.cat([img, w[:, None]], 1)
 
-  def project_and_map(gaussians, camera, config):
+  def project_and_map(gaussians, camera, config, use_depth16=False):
     """What render_gaussians does before its rasterize call."""
     points, depths, _ = tgr.project_to_image(gaussians, camera, config)
     near, far = camera.near_plane, camera.far_plane
     ndc = lib.ndc_depth(torch.clamp(depths, min=near), near, far)
     return points, tgr.map_to_tiles(points, ndc[:, 0], camera.image_size,
-                                    config)
+                                    config, use_depth16=use_depth16)
 
   # ---- phase 1: build --------------------------------------------------
   print(f"[1 build] {card}; torch {torch.__version__}, CUDA "
@@ -317,6 +342,38 @@ def main() -> int:
     p_ms = cuda_ms(lambda: reduce.segment_sums_plain(keys2, grouped2, n2), reps=5)
     print(f"    bitwise identical on a second run; kernel {k_ms:.4f} ms, "
           f"plain {p_ms:.4f} ms")
+
+    # ---- phase 2c: forward visibility against plain ----------------------
+    print(f"[2c forward visibility vs plain] phase 2's scene, "
+          f"{mapping2.overlap_to_point.shape[0]} slots")
+    for antialias in (False, True):
+      for blending in (True, False):
+        cfg = config2.replace(antialias=antialias, use_alpha_blending=blending)
+        label = (f"{'blending' if blending else 'quantile'}/"
+                 f"{'antialias' if antialias else 'conic'}")
+
+        def vis_kernel():
+          return forward.rasterize_forward(points2, features2, mapping2, size2,
+                                           cfg, compute_visibility=True)
+
+        def vis_plain():
+          return forward.rasterize_tiles_plain(points2, features2, mapping2, cfg,
+                                               visibility_image_size=size2)
+
+        _, weight, vis = vis_kernel()
+        torch.cuda.synchronize()
+        check_close(f"{label} per-slot visibility", vis, vis_plain()[2], blending)
+        assert torch.equal(vis, vis_kernel()[2]), f"{label}: two runs differ"
+        if blending:
+          per_point = reduce_slots_by_point(vis[None], mapping2)[:, 0]
+          rel = abs(float(per_point.sum()) / float(weight.sum()) - 1)
+          print(f"    sum of per-point visibility / sum of weight image - 1 = "
+                f"{rel:.3e}")
+          assert rel <= 1e-5, f"{label}: visibility identity off by {rel:.3e}"
+        k_ms = cuda_ms(vis_kernel, reps=20)
+        p_ms = cuda_ms(vis_plain, reps=3)
+        print(f"    bitwise identical on a second run; kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms")
 
     # ---- phase 3: the slice at full size -------------------------------
     width, height = args.size
@@ -410,6 +467,72 @@ def main() -> int:
           f"of pixels")
     print(f"  ms/frame median {statistics.median(sh_ms):.3f} "
           f"(3 renders: {', '.join(f'{t:.3f}' for t in sh_ms)})")
+
+    # ---- phase 4b: serving with visibility and depth16 -----------------
+    vis_config = config.replace(compute_visibility=True)
+    print(f"[4b serve + visibility, depth16] {args.n} gaussians "
+          f"@{width}x{height}, RGB, RasterConfig(compute_visibility=True)")
+
+    def timed_renders(**kw):
+      times = []
+      for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = tgr.render_gaussians(scene, camera, vis_config, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+      return r, times
+
+    for depth16 in (False, True):
+      reset_counts()
+      r, times = timed_renders(use_depth16=depth16)
+      launches = counts()
+      assert launches == {"raster_forward": 3, "raster_backward": 0,
+                          "segment_sum": 3}, launches
+      vis = r.point_visibility
+      assert vis.shape == (args.n,) and torch.isfinite(vis).all()
+      assert float(vis.min()) >= 0.0, float(vis.min())
+      rel = abs(float(vis.sum()) / float(r.image_weight.sum()) - 1)
+      assert rel <= 1e-5, f"visibility identity off by {rel:.3e}"
+      label = "use_depth16=True" if depth16 else "full-depth keys"
+      print(f"  {label}: launches in 3 renders {launches}; "
+            f"{int(r.visible_mask.sum())} points visible; sum of visibility / "
+            f"sum of weight image - 1 = {rel:.3e}")
+      if depth16:
+        _, mapping16 = project_and_map(scene, camera, config, use_depth16=True)
+        assert int(mapping16.total_overlaps) == total, (
+            int(mapping16.total_overlaps), total)
+        mx, p = diff_stats(r.image, r_full.image)
+        print(f"  overlaps {int(mapping16.total_overlaps)}, as with full-depth "
+              f"keys; image against the full-depth render: max |diff| "
+              f"{mx:.3e}, p99.99 |diff| {p:.3e} (quantized ties blend in "
+              f"point order)")
+        det = tgr.render_gaussians(scene, camera,
+                                   vis_config.replace(deterministic=True),
+                                   use_depth16=True)
+        assert torch.equal(det.image, r_full.image), "deterministic depth16"
+        print("  with deterministic=True (ties broken on the full depth) the "
+              "image is the full-depth render's, bit for bit")
+      else:
+        r_full = r
+      print(f"  ms/frame median {statistics.median(times):.3f} "
+            f"(3 renders: {', '.join(f'{t:.3f}' for t in times)})")
+
+    vis_ms = cuda_ms(lambda: forward.rasterize_forward(
+        points, features, mapping, (width, height), config,
+        compute_visibility=True), reps=10)
+    slot_vis = forward.rasterize_forward(points, features, mapping,
+                                         (width, height), config,
+                                         compute_visibility=True)[2]
+    red_vis_ms = cuda_ms(lambda: reduce_slots_by_point(slot_vis[None], mapping),
+                         reps=10)
+    map_ms = host_ms(lambda: project_and_map(scene, camera, config), 5)
+    map16_ms = host_ms(lambda: project_and_map(scene, camera, config,
+                                               use_depth16=True), 5)
+    print(f"  forward kernel with visibility {vis_ms:.4f} ms (without: "
+          f"{fwd_ms:.4f}), per-point reduction {red_vis_ms:.4f} ms (CUDA "
+          f"events); projection + mapper {map_ms:.3f} ms with full-depth "
+          f"keys, {map16_ms:.3f} ms with depth16 keys (host clock, median of 5)")
 
   # ---- phase 5: the training frame at full size --------------------------
   fields = [f.name for f in dataclasses.fields(tgr.Gaussians3D)]
@@ -529,10 +652,47 @@ def main() -> int:
   print(f"  ms/step median {statistics.median(heur_ms):.3f} (3 steps: "
         f"{', '.join(f'{t:.3f}' for t in heur_ms)})")
 
+  # ---- phase 7: the 2D trainer at full size -------------------------------
+  target_size, n0, n_target, iters = (width, height), args.n // 2, args.n, 60
+  print(f"[7 fit 2D] fit(synthetic_target({target_size}), n={n0}, "
+        f"target={n_target}, total_iters={iters}, "
+        f"config=RasterConfig(compute_point_heuristic=True), seed=0); epochs "
+        f"{fit2d.make_epochs(iters, 10, 100)}")
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  history = []
+  reset_counts()
+  t0 = time.perf_counter()
+  params2d, image2d = fit2d.fit(
+      fit2d.synthetic_target(target_size), n=n0, target=n_target,
+      total_iters=iters, config=tgr.RasterConfig(compute_point_heuristic=True),
+      seed=0, device=dev, log=lambda msg: print(f"  {msg}"), history=history)
+  torch.cuda.synchronize()
+  fit_s = time.perf_counter() - t0
+  fit_launches = counts()
+  peak = torch.cuda.max_memory_allocated()
+  print(f"  launches in {iters} steps: {fit_launches}; fit took {fit_s:.2f} s; "
+        f"peak device memory {peak / 2**30:.2f} GiB, of it "
+        f"{(peak - base) / 2**30:.2f} GiB above what earlier phases hold")
+  assert all(v == iters for v in fit_launches.values()), fit_launches
+  assert params2d.num_points == n_target, params2d.num_points
+  rows = {f"{k}.{m}": getattr(s, m).shape[0]
+          for k, s in params2d.state.items() for m in ("m", "v")}
+  rows.update(total_weight=params2d.total_weight.shape[0],
+              running_vis=params2d.running_vis.shape[0])
+  assert all(v == n_target for v in rows.values()), rows
+  for k, v in params2d.tensors.items():
+    assert v.shape[0] == n_target and torch.isfinite(v).all(), k
+  assert image2d.shape == (height, width, 3) and torch.isfinite(image2d).all()
+  assert history[-1]["psnr"] > history[0]["psnr"], history
+  print(f"  {params2d.num_points} points, every optimizer state row count "
+        f"equal to it, finite parameters; PSNR {history[0]['psnr']:.3f} after "
+        f"the first epoch, {history[-1]['psnr']:.3f} after the last")
+
   measured = {
-      "raster_forward": (train_launches, fwd_err, fwd_ms, fwd_plain_ms),
-      "raster_backward": (train_launches, bwd_err, bwd_ms, bwd_plain_ms),
-      "segment_sum": (train_launches, seg_err, seg_ms, seg_plain_ms),
+      "raster_forward": (fit_launches, fwd_err, fwd_ms, fwd_plain_ms),
+      "raster_backward": (fit_launches, bwd_err, bwd_ms, bwd_plain_ms),
+      "segment_sum": (fit_launches, seg_err, seg_ms, seg_plain_ms),
   }
   print(card_line())
   print(json.dumps({"kernels": [

@@ -3,9 +3,12 @@
 
 The module layout mirrors the JAX package's, so each module's counterpart
 is found under the same name. The port covers the forward render path
-(project -> SH shading -> tile map -> forward rasterize) and the training
-frame (the backward raster pass, the per-point gradient reduction and
-training mode's heuristic and visibility sinks). Each TPU kernel is a
+(project -> SH shading -> tile map -> forward rasterize, with per-point
+visibility and 16-bit depth keys as options), the training frame (the
+backward raster pass, the per-point gradient reduction and training
+mode's heuristic and visibility sinks), the optimizers (`optim`) and the
+2D image-fitting trainer (`models.renderer2d`,
+`examples.fit_image_gaussians`). Each TPU kernel is a
 hand-written CUDA kernel (`csrc/*.cu`, built with nvcc for Hopper at
 first use) for CUDA tensors, with its plain PyTorch version for CPU
 tensors. Imports torch, never jax.
@@ -14,7 +17,7 @@ tensors. Imports torch, never jax.
 __version__ = "0.1.0"
 
 from .config import RasterConfig
-from .data_types import Gaussians2D, Gaussians3D, check_packed2d
+from .data_types import Gaussians2D, Gaussians3D, check_packed2d, check_packed3d
 from .ops import CameraParams, evaluate_sh_at, project_points, project_to_image
 from .ops.mapper import TileMapping, map_to_tiles
 from .ops.raster import RasterOut, rasterize, rasterize_with_tiles
@@ -25,6 +28,7 @@ __all__ = [
     "RasterConfig",
     "Gaussians3D",
     "Gaussians2D",
+    "check_packed3d",
     "check_packed2d",
     "CameraParams",
     "project_to_image",

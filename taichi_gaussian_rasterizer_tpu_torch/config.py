@@ -18,17 +18,19 @@ carry over unchanged, and have no effect in this package:
 
 ``deterministic`` holds whatever its value: the mapper sorts stably, so
 ties in (tile, depth) blend in a reproducible order, and the gradients
-are reproducible bit for bit -- the backward kernel writes each slot's
-row once, the reduction sorts stably and sums each point's slots in
-order, and no kernel uses atomics.
+and visibility are reproducible bit for bit -- the raster kernels write
+each slot's values once, the reduction sorts stably and sums each
+point's slots in order, and no kernel uses atomics. Its one effect is on
+``use_depth16`` keys: with it, quantized depth ties are broken on the
+full depth (as in the JAX mapper), without it on the point index.
 
 ``max_tile_span`` is honoured with the JAX mapper's clamp-and-flag
 semantics, so overlap sets match it. ``compute_point_heuristic`` adds
 the heuristic rows to the backward, delivered through a heuristic sink
-next to a visibility sink (`rasterize_with_tiles`). The forward's
-per-point visibility is not ported yet: ``compute_visibility``, and
-``compute_point_heuristic`` without a visibility sink, raise
-`NotImplementedError`.
+next to a visibility sink (`rasterize_with_tiles`). ``compute_visibility``
+(and ``compute_point_heuristic`` without a visibility sink) takes each
+point's visibility from the forward kernel instead, in
+`RasterOut.visibility`.
 """
 
 from dataclasses import dataclass, replace

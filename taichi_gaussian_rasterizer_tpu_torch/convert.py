@@ -10,7 +10,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .data_types import Gaussians3D
+from .data_types import Gaussians2D, Gaussians3D
 from .ops.projection import CameraParams
 
 
@@ -24,6 +24,19 @@ def gaussians_from_numpy(position, log_scaling, rotation, alpha_logit,
   """numpy arrays (N,3), (N,3), (N,4) xyzw, (N,1), (N,C) or (N,3,K)."""
   return Gaussians3D(
       position=_tensor(position, device, dtype),
+      log_scaling=_tensor(log_scaling, device, dtype),
+      rotation=_tensor(rotation, device, dtype),
+      alpha_logit=_tensor(alpha_logit, device, dtype),
+      feature=_tensor(feature, device, dtype))
+
+
+def gaussians2d_from_numpy(position, z_depth, log_scaling, rotation,
+                           alpha_logit, feature, device="cpu",
+                           dtype=torch.float32) -> Gaussians2D:
+  """numpy arrays (N,2), (N,1), (N,2), (N,2) unit complex, (N,1), (N,C)."""
+  return Gaussians2D(
+      position=_tensor(position, device, dtype),
+      z_depth=_tensor(z_depth, device, dtype),
       log_scaling=_tensor(log_scaling, device, dtype),
       rotation=_tensor(rotation, device, dtype),
       alpha_logit=_tensor(alpha_logit, device, dtype),

@@ -57,9 +57,7 @@ using namespace tgr;
 
 namespace {
 
-constexpr int kSub = 32;   // slots whose per-warp partials are held at once
 constexpr int kMaxRows = 7 + 2 + 1 + kMaxFeatures;
-constexpr unsigned kFullMask = 0xffffffffu;
 
 __host__ __device__ constexpr int point_rows(bool antialias) {
   return antialias ? 7 : 6;
@@ -240,9 +238,7 @@ raster_backward_kernel(const float* __restrict__ points,
 #pragma unroll
           for (int r = 0; r < kMaxRows; ++r) {
             if (r < rows) {
-              float x = v[r];
-#pragma unroll
-              for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFullMask, x, o);
+              const float x = warp_sum(v[r]);
               if (lane == 0) part[r * n_warps * kSub] = x;
             }
           }

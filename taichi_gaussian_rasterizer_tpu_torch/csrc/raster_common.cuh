@@ -114,6 +114,22 @@ __device__ __forceinline__ bool stopped(float T, float stop) {
   return !(one_minus(T) < stop);
 }
 
+// Per-slot sums over a tile's pixels, without atomics: each warp sums a
+// slot's values over its 32 lanes with warp_sum, lane 0 keeps the partial
+// in shared memory for kSub slots at a time, and the block then adds the
+// warps' partials in warp order. The order is fixed, so two runs are
+// bitwise identical, and the forward's visibility and the backward's
+// visibility row, summed the same way, agree bit for bit.
+constexpr int kSub = 32;              // slots whose per-warp partials are held
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Sum of x over the warp's 32 lanes, in lane 0. Every lane must call it.
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFullMask, x, o);
+  return x;
+}
+
 }  // namespace tgr
 
 extern "C" const char* tgr_error_string(int status) {

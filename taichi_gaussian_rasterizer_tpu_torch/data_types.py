@@ -5,9 +5,6 @@ by projection, consumed by the tile mapper and rasterizer):
 
   7 floats = mean(2), axis(2: unit major eigenvector), sigma(2: sqrt of
   eigenvalues), alpha(1)
-
-Left out until the trainer and the 2D renderer are ported (ROADMAP queue
-1 items 12-13): `concat`, `Gaussians2D.set_scaling` and `check_packed3d`.
 """
 
 from dataclasses import dataclass, fields, replace
@@ -17,6 +14,11 @@ import torch
 
 def _map(obj, fn):
   return replace(obj, **{f.name: fn(getattr(obj, f.name)) for f in fields(obj)})
+
+
+def _concat(a, b):
+  return replace(a, **{f.name: torch.cat([getattr(a, f.name), getattr(b, f.name)])
+                       for f in fields(a)})
 
 
 @dataclass(frozen=True)
@@ -62,6 +64,9 @@ class Gaussians3D:
   def replace(self, **kwargs) -> "Gaussians3D":
     return replace(self, **kwargs)
 
+  def concat(self, other: "Gaussians3D") -> "Gaussians3D":
+    return _concat(self, other)
+
   def to(self, *args, **kwargs) -> "Gaussians3D":
     return _map(self, lambda t: t.to(*args, **kwargs))
 
@@ -100,11 +105,25 @@ class Gaussians2D:
   def batch_size(self):
     return self.position.shape[:-1]
 
+  def set_scaling(self, scaling) -> "Gaussians2D":
+    return replace(self, log_scaling=torch.log(scaling))
+
   def replace(self, **kwargs) -> "Gaussians2D":
     return replace(self, **kwargs)
 
+  def concat(self, other: "Gaussians2D") -> "Gaussians2D":
+    return _concat(self, other)
+
+  def to(self, *args, **kwargs) -> "Gaussians2D":
+    return _map(self, lambda t: t.to(*args, **kwargs))
+
   def __getitem__(self, idx) -> "Gaussians2D":
     return _map(self, lambda t: t[idx])
+
+
+def check_packed3d(packed: torch.Tensor):
+  if packed.ndim != 2 or packed.shape[1] != 11:
+    raise ValueError(f"Expected shape (N, 11), got {tuple(packed.shape)}")
 
 
 def check_packed2d(packed: torch.Tensor):

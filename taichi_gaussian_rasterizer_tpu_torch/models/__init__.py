@@ -1,8 +1,10 @@
+from . import renderer2d
 from .renderer import (Rendering, compute_depth_variance, render_gaussians,
                        render_projected, render_with_heuristics,
                        viewspace_gradient)
 
 __all__ = [
+    "renderer2d",
     "Rendering",
     "render_gaussians",
     "render_projected",

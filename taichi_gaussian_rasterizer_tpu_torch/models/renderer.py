@@ -8,13 +8,13 @@ tile mapping. The render is differentiable: `loss.backward()` after
 `render_gaussians` gives gradients for every `Gaussians3D` tensor.
 `render_with_heuristics` is the training-mode step: it returns the loss,
 the gradients and a rendering whose per-point heuristics and visibility
-are filled in from the backward pass.
+are filled in from the backward pass. With `compute_visibility` in the
+config, a plain render fills `point_visibility` from the forward pass.
 
-Not ported yet: the forward's per-point visibility (`compute_visibility`,
-ROADMAP queue 1 item 9b) and `use_depth16` (item 10), which raise
-`NotImplementedError`. `capacity`, `emit_tails`, `reduce_capacity` and
+`capacity`, `emit_tails`, `reduce_capacity` and
 `visit_chunks`/`visit_capacity` are XLA static-shape knobs and are not
-part of these signatures.
+part of these signatures; saturation-front truncation is not ported yet
+(ROADMAP queue 1 item 11).
 """
 
 from dataclasses import dataclass, fields, replace
@@ -33,8 +33,9 @@ from ..ops.sh import evaluate_sh_at
 
 @dataclass(frozen=True)
 class Rendering:
-  """Renderer outputs. point_heuristic (prune cost, split score) and
-  point_visibility are filled in by `render_with_heuristics`."""
+  """Renderer outputs. point_heuristic (prune cost, split score) is filled
+  in by `render_with_heuristics`, point_visibility by it or by a render
+  with config.compute_visibility."""
   image: torch.Tensor                 # (H, W, C)
   image_weight: torch.Tensor          # (H, W) accumulated alpha
   points_in_view: torch.Tensor        # (N,) bool mask
@@ -92,7 +93,8 @@ class Rendering:
   @property
   def visible_mask(self):
     if self.point_visibility is None:
-      raise ValueError("no visibility: render with render_with_heuristics")
+      raise ValueError("no visibility: render with config.compute_visibility "
+                       "or with render_with_heuristics")
     return self.point_visibility > 0
 
   def _heuristic(self):
@@ -107,6 +109,16 @@ class Rendering:
   @property
   def num_points(self) -> int:
     return self.points_in_view.shape[0]
+
+  def detach(self) -> "Rendering":
+    """The same rendering with every tensor cut from the autograd graph."""
+    def cut(v):
+      return v.detach() if isinstance(v, torch.Tensor) else v
+    camera = replace(self.camera, projection=self.camera.projection.detach(),
+                     T_camera_world=self.camera.T_camera_world.detach())
+    return replace(self, camera=camera, **{
+        f.name: cut(getattr(self, f.name)) for f in fields(self)
+        if f.name != "camera"})
 
   def replace(self, **kwargs) -> "Rendering":
     return replace(self, **kwargs)
@@ -172,6 +184,7 @@ def render_projected(in_view: torch.Tensor, gaussians2d: torch.Tensor,
       gaussians2d=gaussians2d,
       camera=camera_params,
       config=config,
+      point_visibility=raster.visibility,
       depth=img_depth,
       depth_var=img_depth_var,
       median_depth=median_depth)

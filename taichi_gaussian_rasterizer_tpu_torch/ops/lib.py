@@ -1,5 +1,5 @@
 """Math helpers (port of the parts of `taichi_gaussian_rasterizer_tpu.ops.lib`
-that the forward render path calls).
+that the render paths and the 2D trainer call).
 
 Left out for now: the 2x2 eigendecomposition and pdf helpers (projection
 inlines its own columnized eigendecomposition, the rasterizer its pdfs),
@@ -16,6 +16,15 @@ def sigmoid(x):
 
 def inverse_sigmoid(x):
   return -torch.log(1.0 / x - 1.0)
+
+
+def perp(v):
+  """90-degree rotation of a 2D vector."""
+  return torch.stack([-v[..., 1], v[..., 0]], dim=-1)
+
+
+def dot(a, b):
+  return torch.sum(a * b, dim=-1)
 
 
 def safe_normalize(v, eps=1e-32):
@@ -64,3 +73,13 @@ def ndc_depth(depth, near, far):
 
 def inverse_ndc_depth(ndc, near, far):
   return 1.0 / ((1.0 - ndc) * (1.0 / near - 1.0 / far) + 1.0 / far)
+
+
+def pack_g2d(mean, axis, sigma, alpha):
+  """(..., 2), (..., 2), (..., 2), (...,) -> (..., 7) packed 2D gaussians."""
+  return torch.cat([mean, axis, sigma, alpha[..., None]], dim=-1)
+
+
+def unpack_g2d(vec):
+  """(..., 7) -> mean, axis, sigma, alpha."""
+  return vec[..., 0:2], vec[..., 2:4], vec[..., 4:6], vec[..., 6]

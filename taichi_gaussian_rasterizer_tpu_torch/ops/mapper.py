@@ -15,11 +15,19 @@ The key is the 64-bit `tile << 32 | depth_rank`, where depth_rank is the
 gaussian's position in a stable depth sort: lexicographic (tile, depth)
 order for any float dtype, ties broken by point index.
 
+`use_depth16` sorts a 32-bit key instead, half the radix passes: the
+depth clipped to [0, 1] and quantized to 16 bits (`trunc(d * 65535)`, as
+the JAX mapper does) under the tile id, `tile << 16 | d16`, with the sign
+bit flipped so that torch's signed int32 sort keeps the unsigned order.
+The sort is stable, so quantized ties keep the emission order: point
+index, or with `config.deterministic` the full depth (the candidates are
+then emitted in depth order, as the JAX mapper's secondary full-depth
+key orders them). Tile ids must stay under the 0xFFFF sentinel.
+
 Left out, because they exist only for XLA's static shapes on the TPU:
 `capacity` (buffers are sized from the synced total instead),
 `emit_tails`/`probe_emit_tails` and the bucketed emission ladder, and the
-two-level searchsorted. `use_depth16` (16-bit depth keys) is not ported
-yet: ROADMAP queue 1 item 10.
+two-level searchsorted.
 """
 
 from dataclasses import dataclass
@@ -142,13 +150,11 @@ def map_to_tiles(points: torch.Tensor, depth: torch.Tensor,
     points: (N, 7) packed 2D gaussians
     depth: (N,) or (N, 1) sort depths
     image_size: (width, height)
-    config: RasterConfig (tile_size, alpha_threshold, max_tile_span)
-    use_depth16: not ported yet (raises NotImplementedError)
+    config: RasterConfig (tile_size, alpha_threshold, max_tile_span,
+      deterministic)
+    use_depth16: sort on 16-bit quantized depths in [0, 1] (see the module
+      docstring); raises ValueError when the tile grid reaches 0xFFFF tiles
   """
-  if use_depth16:
-    raise NotImplementedError(
-        "use_depth16 (16-bit depth sort keys) is not ported yet: "
-        "ROADMAP queue 1 item 10")
   n = points.shape[0]
   if depth.ndim == 2:
     depth = depth[:, 0]
@@ -156,17 +162,30 @@ def map_to_tiles(points: torch.Tensor, depth: torch.Tensor,
   tile_size = config.tile_size
   tw, th = num_tiles(image_size, tile_size)
   n_tiles = tw * th
+  if use_depth16 and n_tiles >= 0xFFFF:
+    raise ValueError(
+        f"tile grid {th}x{tw} aliases the depth16 sentinel tile id 0xFFFF; "
+        "use use_depth16=False or a larger tile_size")
 
   fp = _footprint(points, image_size, tile_size, config.alpha_threshold,
                   config.max_tile_span)
 
-  # candidates: every tile of each clamped footprint (row-major within it)
+  # candidates: every tile of each clamped footprint (row-major within
+  # it), point by point; for deterministic depth16 keys the points are
+  # taken in depth order, so that the stable sort breaks quantized ties
+  # on the full depth
   counts = (fp["span_x"] * fp["span_y"]).to(torch.int64)
+  by_depth = None
+  if use_depth16 and config.deterministic:
+    by_depth = torch.sort(depth, stable=True).indices
+    counts = counts[by_depth]
   offsets = torch.cumsum(counts, 0) - counts
   n_cand = int(counts.sum())                     # the one host sync
   gid = torch.repeat_interleave(
       torch.arange(n, device=device), counts, output_size=n_cand)
   j = torch.arange(n_cand, device=device) - offsets[gid]
+  if by_depth is not None:
+    gid = by_depth[gid]
   sx = fp["span_x"].to(torch.int64)[gid]
   ty = fp["ty0"][gid] + j // sx
   tx = fp["tx0"][gid] + j % sx
@@ -174,14 +193,22 @@ def map_to_tiles(points: torch.Tensor, depth: torch.Tensor,
   lo_y = (ty * tile_size).to(points.dtype) - fp["my"][gid]
   accept = _sat_accept(lo_x, lo_y, tuple(b[gid] for b in fp["ib"]), tile_size)
 
-  # one stable sort on (tile, depth rank); rejected candidates sort last
-  depth_rank = torch.empty(n, dtype=torch.int64, device=device)
-  depth_rank[torch.sort(depth, stable=True).indices] = torch.arange(
-      n, device=device)
+  # one stable sort on (tile, depth); rejected candidates sort last
   tile = torch.where(accept, (tx + ty * tw).to(torch.int64), n_tiles)
-  key = (tile << 32) | depth_rank[gid]
-  key, order = torch.sort(key, stable=True)
-  sorted_tile = (key >> 32).to(torch.int32)
+  if use_depth16:
+    d16 = (torch.clamp(depth, 0.0, 1.0) * 65535.0).to(torch.int64)
+    # (tile << 16 | d16) < 2**32; subtracting 2**31 maps its unsigned
+    # order onto int32's signed order
+    key = (((tile << 16) | d16[gid]) - 2 ** 31).to(torch.int32)
+    key, order = torch.sort(key, stable=True)
+    sorted_tile = ((key.to(torch.int64) + 2 ** 31) >> 16).to(torch.int32)
+  else:
+    depth_rank = torch.empty(n, dtype=torch.int64, device=device)
+    depth_rank[torch.sort(depth, stable=True).indices] = torch.arange(
+        n, device=device)
+    key = (tile << 32) | depth_rank[gid]
+    key, order = torch.sort(key, stable=True)
+    sorted_tile = (key >> 32).to(torch.int32)
   overlap_to_point = torch.where(sorted_tile < n_tiles, gid[order], n).to(torch.int32)
 
   bounds = torch.searchsorted(

@@ -6,6 +6,10 @@ kernel `taichi_gaussian_rasterizer_tpu/ops/raster/forward.py:_forward_kernel`)
 or raises; on a CPU tensor it runs `rasterize_tiles_plain`, the same blend
 written as straight tensor code over each tile's bin, which autograd
 differentiates. Nothing falls back from the kernel to the plain version.
+With `compute_visibility` both also return the per-slot visibility (K,):
+each overlap slot's weight summed over its tile's pixels inside the image
+(the JAX kernel also counts a partial edge tile's pixels past the image),
+so that the per-point sums add up to the weight image.
 
 Blend semantics are the JAX package's (`blend.chunk_weights_raw`), which
 differ from the Taichi reference's forward:
@@ -30,7 +34,7 @@ import torch
 from ...config import RasterConfig
 from ...utils.cuda_build import CudaKernel
 from ..mapper import TileMapping
-from .tiles import tiles_to_image
+from .tiles import image_to_tiles, tiles_to_image
 
 MAX_FEATURES = 16   # kMaxFeatures in csrc/raster_forward.cu
 
@@ -38,7 +42,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 RASTER_FORWARD = CudaKernel(
     "raster_forward.cu", "tgr_raster_forward",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _I, _P, _P, _P])
+     ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _I, _P, _P, _P, _P])
 
 # elements of one (tiles, pixels, points) field the plain version
 # materializes at a time; bounds its memory on large frames
@@ -79,8 +83,8 @@ def _pdf_alpha(pts: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
 
 def rasterize_tiles_plain(points: torch.Tensor, features: torch.Tensor,
                           mapping: TileMapping, config: RasterConfig,
-                          tile_ids: Optional[Sequence[int]] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          tile_ids: Optional[Sequence[int]] = None,
+                          visibility_image_size: Optional[Tuple[int, int]] = None):
   """Plain PyTorch forward over whole tile bins.
 
   Each bin is gathered into a (tiles, pixels, points) field; the
@@ -88,7 +92,10 @@ def rasterize_tiles_plain(points: torch.Tensor, features: torch.Tensor,
   (1 - a). `tile_ids` selects a subset of tiles (default: all).
 
   Returns tile-packed (image (T', F, P), weight (T', P)) for the selected
-  tiles, in `tile_ids` order.
+  tiles, in `tile_ids` order. With `visibility_image_size` (width,
+  height) it also returns the per-slot visibility (K,): each slot's weight
+  summed over the pixels of its tile inside that image (0 for slots of
+  unselected tiles and past the real overlaps).
   """
   dtype, device = points.dtype, points.device
   f = features.shape[1]
@@ -116,6 +123,12 @@ def rasterize_tiles_plain(points: torch.Tensor, features: torch.Tensor,
       [points, torch.tensor([[0, 0, 1, 0, 1, 1, 0]], dtype=dtype, device=device)])
   feats_pad = torch.cat([features, features.new_zeros(1, f)])
   c = 1 - config.saturate_threshold
+  vis = None
+  if visibility_image_size is not None:
+    w_img, h_img = visibility_image_size
+    inside_t = image_to_tiles(points.new_ones(h_img, w_img, 1),
+                              mapping.tile_shape, ts)[:, 0]       # (T, P)
+    vis = points.new_zeros(k)
 
   images, weights = [], []
   step = max(1, _PLAIN_BATCH_ELEMENTS // (p * mb))
@@ -143,10 +156,14 @@ def rasterize_tiles_plain(points: torch.Tensor, features: torch.Tensor,
       alpha = (a_eff * t_excl).sum(-1)
     images.append(torch.einsum("bpm,bmf->bfp", w, feats_pad[idx]))
     weights.append(alpha if config.use_alpha_blending else (alpha > 0).to(dtype))
+    if vis is not None:
+      vis[slot[live]] = torch.einsum("bp,bpm->bm", inside_t[t], w)[live]
 
   if not images:
-    return points.new_zeros(0, f, p), points.new_zeros(0, p)
-  return torch.cat(images), torch.cat(weights)
+    image, weight = points.new_zeros(0, f, p), points.new_zeros(0, p)
+  else:
+    image, weight = torch.cat(images), torch.cat(weights)
+  return (image, weight) if vis is None else (image, weight, vis)
 
 
 def _check_cuda_inputs(points, features, mapping):
@@ -171,18 +188,24 @@ def _check_cuda_inputs(points, features, mapping):
 
 def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
                          mapping: TileMapping, image_size: Tuple[int, int],
-                         config: RasterConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                         config: RasterConfig, compute_visibility: bool = False):
   """Launch the CUDA kernel: float32 only, (N, F) features with F <= 16,
-  tile_size**2 <= 1024. Returns (image (H, W, F), weight (H, W))."""
+  tile_size**2 <= 1024 (a multiple of 32 with compute_visibility).
+  Returns (image (H, W, F), weight (H, W)) [+ per-slot visibility (K,)]."""
   _check_cuda_inputs(points, features, mapping)
   ts = config.tile_size
   if ts * ts > 1024:
     raise ValueError(f"tile_size {ts}: the CUDA kernel takes at most 32x32 tiles")
+  if compute_visibility and (ts * ts) % 32:
+    raise ValueError(f"tile_size {ts}: the CUDA kernel's visibility takes "
+                     "tiles of whole warps (tile_size**2 a multiple of 32)")
   w, h = image_size
   th, tw = mapping.tile_shape
   image = torch.empty((h, w, features.shape[1]), dtype=torch.float32,
                       device=points.device)
   weight = torch.empty((h, w), dtype=torch.float32, device=points.device)
+  vis = (torch.zeros(mapping.overlap_to_point.shape, dtype=torch.float32,
+                     device=points.device) if compute_visibility else None)
   RASTER_FORWARD.launch(
       points.data_ptr(), features.data_ptr(),
       mapping.overlap_to_point.data_ptr(), mapping.tile_ranges.data_ptr(),
@@ -190,20 +213,27 @@ def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
       config.alpha_threshold, config.clamp_max_alpha,
       config.saturate_threshold, int(config.antialias),
       int(config.use_alpha_blending), image.data_ptr(), weight.data_ptr(),
+      None if vis is None else vis.data_ptr(),
       torch.cuda.current_stream(points.device).cuda_stream)
-  return image, weight
+  return (image, weight) if vis is None else (image, weight, vis)
 
 
 def rasterize_forward(points: torch.Tensor, features: torch.Tensor,
                       mapping: TileMapping, image_size: Tuple[int, int],
-                      config: RasterConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-  """(image (H, W, F), weight (H, W)): the CUDA kernel for CUDA tensors,
-  the plain version for CPU tensors. A non-float32 CUDA input raises."""
+                      config: RasterConfig, compute_visibility: bool = False):
+  """(image (H, W, F), weight (H, W)), and with compute_visibility the
+  per-slot visibility (K,) as a third value: the CUDA kernel for CUDA
+  tensors, the plain version for CPU tensors. A non-float32 CUDA input
+  raises."""
   if points.is_cuda:
-    return rasterize_tiles_cuda(points, features, mapping, image_size, config)
+    return rasterize_tiles_cuda(points, features, mapping, image_size, config,
+                                compute_visibility)
   if points.device.type != "cpu":
     raise ValueError(f"no forward rasterizer for device {points.device}")
-  image, weight = rasterize_tiles_plain(points, features, mapping, config)
+  image, weight, *vis = rasterize_tiles_plain(
+      points, features, mapping, config,
+      visibility_image_size=image_size if compute_visibility else None)
   ts = config.tile_size
   return (tiles_to_image(image, mapping.tile_shape, ts, image_size),
-          tiles_to_image(weight[:, None, :], mapping.tile_shape, ts, image_size)[..., 0])
+          tiles_to_image(weight[:, None, :], mapping.tile_shape, ts, image_size)[..., 0],
+          *vis)

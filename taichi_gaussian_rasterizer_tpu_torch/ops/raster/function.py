@@ -18,15 +18,18 @@ reference, as in the JAX package). Training mode's heuristics (prune
 cost, split score) and per-point visibility arrive as the gradients of a
 zero `heuristic_sink` (N, 2) and `visibility_sink` (N,) passed in, the
 JAX package's functional design; the backward computes them as extra
-slot rows. Non-blending (quantile) outputs are detached.
+slot rows. Without a visibility sink, `compute_visibility` (or
+`compute_point_heuristic`) takes the visibility from the forward instead:
+the forward kernel's per-slot output, summed per point by
+`reduce_slots_by_point` (kernel 3 on the card) and detached, in
+`RasterOut.visibility`. Non-blending (quantile) outputs are detached.
 
 Not ported yet, and raising `NotImplementedError` instead of doing
-nothing: the forward's per-slot visibility (`compute_visibility`, and
-`compute_point_heuristic` without a visibility sink; ROADMAP queue 1 item
-9b), `use_depth16` (item 10) and saturation-front truncation
-(`truncate_mapping`, `probe_visit_chunks`; item 11). Left out because
-they exist only for XLA's static shapes: `capacity`, `reduce_capacity`,
-`visit_capacity` and the `impl`/`max_points_per_tile` switch.
+nothing: saturation-front truncation (`truncate_mapping`,
+`probe_visit_chunks`; ROADMAP queue 1 item 11). Left out because they
+exist only for XLA's static shapes: `capacity`, `reduce_capacity`,
+`visit_capacity` and the `impl`/`max_points_per_tile` switch, so
+`RasterOut.bin_overflow` is always None.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -44,13 +47,10 @@ class RasterOut(NamedTuple):
   image: torch.Tensor                        # (H, W, F)
   image_weight: torch.Tensor                 # (H, W) accumulated alpha
   point_heuristic: Optional[torch.Tensor]    # via heuristic-sink gradients
-  visibility: Optional[torch.Tensor]         # forward visibility (not ported)
+  visibility: Optional[torch.Tensor]         # (N,) total blend weight
+  bin_overflow: Optional[torch.Tensor] = None  # truncation only (not ported)
 
 
-_FORWARD_VISIBILITY = (
-    "per-point visibility from the forward pass (compute_visibility, or "
-    "compute_point_heuristic without a visibility_sink) is not ported yet: "
-    "ROADMAP queue 1 item 9b; pass a zero visibility_sink instead")
 _TRUNCATION = ("saturation-front truncation is not ported yet: "
                "ROADMAP queue 1 item 11")
 
@@ -108,17 +108,20 @@ class _Rasterize(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, points, features, heuristic_sink, visibility_sink,
-              mapping, image_size, config):
-    image, weight = rasterize_forward(points, features, mapping, image_size,
-                                      config)
+              mapping, image_size, config, compute_visibility):
+    image, weight, *slot_vis = rasterize_forward(
+        points, features, mapping, image_size, config, compute_visibility)
     ctx.save_for_backward(points, features, image, weight)
     ctx.mapping, ctx.config = mapping, config
     ctx.heuristic = config.compute_point_heuristic and heuristic_sink is not None
     ctx.vis_row = visibility_sink is not None
-    return image, weight
+    if not slot_vis:
+      return image, weight
+    ctx.mark_non_differentiable(slot_vis[0])
+    return image, weight, slot_vis[0]
 
   @staticmethod
-  def backward(ctx, grad_image, grad_weight):
+  def backward(ctx, grad_image, grad_weight, grad_slot_vis=None):
     points, features, image, weight = ctx.saved_tensors
     config, mapping = ctx.config, ctx.mapping
     f = features.shape[1]
@@ -138,7 +141,7 @@ class _Rasterize(torch.autograd.Function):
       vis = per_point[:, col]
       col += 1
     return (grad_points, per_point[:, col:col + f], heuristic, vis,
-            None, None, None)
+            None, None, None, None)
 
 
 def rasterize_with_tiles(
@@ -165,18 +168,27 @@ def rasterize_with_tiles(
   Returns RasterOut with image (H, W, F) and image_weight (H, W), both
   differentiable wrt gaussians2d and features in blending mode.
   Non-blending (quantile) outputs are detached, as in the JAX package.
+  With config.compute_visibility or config.compute_point_heuristic and no
+  visibility_sink, RasterOut.visibility is each point's visibility from
+  the forward (detached; in quantile mode the number of pixels that
+  selected the point).
   """
-  if ((config.compute_visibility or config.compute_point_heuristic)
-      and visibility_sink is None):
-    raise NotImplementedError(_FORWARD_VISIBILITY)
+  compute_visibility = ((config.compute_visibility
+                         or config.compute_point_heuristic)
+                        and visibility_sink is None)
   if not config.use_alpha_blending:
-    image, weight = rasterize_forward(gaussians2d, features, mapping,
-                                      image_size, config)
-    return RasterOut(image.detach(), weight.detach(), None, None)
-  image, weight = _Rasterize.apply(gaussians2d, features, heuristic_sink,
-                                   visibility_sink, mapping, tuple(image_size),
-                                   config)
-  return RasterOut(image, weight, None, None)
+    with torch.no_grad():
+      image, weight, *slot_vis = rasterize_forward(
+          gaussians2d, features, mapping, image_size, config,
+          compute_visibility)
+  else:
+    image, weight, *slot_vis = _Rasterize.apply(
+        gaussians2d, features, heuristic_sink, visibility_sink, mapping,
+        tuple(image_size), config, compute_visibility)
+  visibility = None
+  if compute_visibility:
+    visibility = reduce_slots_by_point(slot_vis[0].detach()[None], mapping)[:, 0]
+  return RasterOut(image, weight, None, visibility)
 
 
 def rasterize(gaussians2d: torch.Tensor, depth: torch.Tensor,

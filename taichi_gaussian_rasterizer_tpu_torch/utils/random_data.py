@@ -1,6 +1,6 @@
 """Random scenes for tests and benchmarks (port of
-`taichi_gaussian_rasterizer_tpu.utils.random_data`: `random_camera` and
-`random_3d_gaussians`).
+`taichi_gaussian_rasterizer_tpu.utils.random_data`: `random_camera`,
+`random_3d_gaussians` and `random_2d_gaussians`).
 
 Driven by an explicit `torch.Generator`; tensors are made on the
 generator's device. The same seed gives different numbers than the JAX
@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..data_types import Gaussians3D
+from ..data_types import Gaussians2D, Gaussians3D
 from ..ops import lib
 from ..ops.projection import CameraParams
 
@@ -106,3 +106,33 @@ def random_3d_gaussians(generator: torch.Generator, n: int,
       rotation=rotation,
       alpha_logit=lib.inverse_sigmoid(alpha)[:, None],
       feature=feature)
+
+
+def random_2d_gaussians(generator: torch.Generator, n: int,
+                        image_size: Tuple[int, int], num_channels: int = 3,
+                        scale_factor: float = 1.0, alpha_range=(0.1, 0.9),
+                        depth_range=(0.0, 1.0),
+                        dtype=torch.float32) -> Gaussians2D:
+  """2D gaussians at uniform positions over the image, uniform depths in
+  depth_range, scales ~ image width / sqrt(n), random rotations and
+  alphas, uniform features."""
+  w, h = image_size
+  position = _rand(generator, n, 2, dtype=dtype) * torch.tensor(
+      [w, h], dtype=dtype, device=generator.device)
+  depth = (_rand(generator, n, 1, dtype=dtype)
+           * (depth_range[1] - depth_range[0]) + depth_range[0])
+
+  density_scale = scale_factor * w / (1 + math.sqrt(n))
+  scaling = (_rand(generator, n, 2, dtype=dtype) + 0.2) * density_scale
+  rotation = lib.safe_normalize(_randn(generator, n, 2, dtype=dtype))
+
+  low, high = alpha_range
+  alpha = _rand(generator, n, dtype=dtype) * (high - low) + low
+
+  return Gaussians2D(
+      position=position,
+      z_depth=depth,
+      log_scaling=torch.log(scaling),
+      rotation=rotation,
+      alpha_logit=lib.inverse_sigmoid(alpha)[:, None],
+      feature=_rand(generator, n, num_channels, dtype=dtype))

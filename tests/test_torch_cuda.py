@@ -257,3 +257,124 @@ def test_kernel_raises_on_float64_and_backward(cuda_device):
   out.image.sum().backward()
   assert backward.RASTER_BACKWARD.launch_count == before + 1
   assert torch.isfinite(pts32.grad).all() and pts32.grad.abs().sum() > 0
+
+
+def _forward_visibility(device, config, n=2000, size=(200, 120)):
+  pts, depth, f = _scene(device, n, size, 3)
+  mapping = map_to_tiles(pts, depth, size, config)
+  before = forward.RASTER_FORWARD.launch_count
+  got = forward.rasterize_forward(pts, f, mapping, size, config,
+                                  compute_visibility=True)
+  torch.cuda.synchronize()
+  assert forward.RASTER_FORWARD.launch_count == before + 1
+  _, _, want = forward.rasterize_tiles_plain(pts, f, mapping, config,
+                                             visibility_image_size=size)
+  return pts, f, mapping, got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("blending", [True, False])
+@pytest.mark.parametrize("tile_size", [8, 16])
+def test_forward_visibility_kernel_matches_plain(cuda_device, antialias, blending,
+                                                 tile_size):
+  """Per-slot visibility against the plain version: p99.9 |diff| <= 1e-4
+  of the largest slot value, and max <= 1e-2 of it when blending (in
+  quantile mode a borderline pixel can select another point). The image
+  and weight are the visibility-free launch's to atol 1e-6; two runs are
+  bitwise identical; slots past the real overlaps hold 0."""
+  config = RasterConfig(tile_size=tile_size, antialias=antialias,
+                        use_alpha_blending=blending)
+  size = (200, 120)
+  pts, f, mapping, (image, weight, vis), want = _forward_visibility(cuda_device, config)
+  scale = float(want.abs().max())
+  assert scale > 0
+  rel = ((vis - want).abs() / scale).cpu().numpy()
+  assert np.quantile(rel, 0.999) <= 1e-4
+  if blending:
+    assert rel.max() <= 1e-2
+  image0, weight0 = forward.rasterize_forward(pts, f, mapping, size, config)
+  torch.testing.assert_close(image, image0, rtol=0, atol=1e-6)
+  torch.testing.assert_close(weight, weight0, rtol=0, atol=1e-6)
+  again = forward.rasterize_forward(pts, f, mapping, size, config,
+                                    compute_visibility=True)[2]
+  assert torch.equal(vis, again)
+  assert (vis[int(mapping.total_overlaps):] == 0).all()
+
+
+@pytest.mark.cuda
+def test_forward_visibility_equals_the_sink_on_card(cuda_device):
+  """Blending: the forward's per-point visibility (kernels 1 and 3) equals
+  the visibility sink's gradient (kernels 2 and 3) bit for bit -- both sum
+  the same weights in the same order -- and adds up to the weight image
+  (rtol 1e-5)."""
+  config = RasterConfig(tile_size=16, compute_visibility=True)
+  size = (200, 120)
+  pts, depth, f = _scene(cuda_device, 3000, size, 3)
+  mapping = map_to_tiles(pts, depth, size, config)
+  counts = (forward.RASTER_FORWARD.launch_count, reduce.SEGMENT_SUM.launch_count)
+  out = rasterize_with_tiles(pts, f, mapping, size, config)
+  assert (forward.RASTER_FORWARD.launch_count,
+          reduce.SEGMENT_SUM.launch_count) == (counts[0] + 1, counts[1] + 1)
+  vs = torch.zeros(3000, device=cuda_device, requires_grad=True)
+  p = pts.clone().requires_grad_()
+  rasterize_with_tiles(p, f, mapping, size, config,
+                       visibility_sink=vs).image.sum().backward()
+  assert torch.equal(out.visibility, vs.grad)
+  torch.testing.assert_close(out.visibility.sum(), out.image_weight.sum(),
+                             rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_forward_visibility_needs_whole_warps(cuda_device):
+  pts, depth, f = _scene(cuda_device, 100, (32, 24), 3)
+  config = RasterConfig(tile_size=4)
+  mapping = map_to_tiles(pts, depth, (32, 24), config)
+  forward.rasterize_forward(pts, f, mapping, (32, 24), config)   # no visibility: fine
+  with pytest.raises(ValueError, match="whole warps"):
+    forward.rasterize_forward(pts, f, mapping, (32, 24), config,
+                              compute_visibility=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_depth16_mapper_on_card_matches_cpu(cuda_device, deterministic):
+  config = RasterConfig(tile_size=16, deterministic=deterministic)
+  pts, depth, _ = _scene(cuda_device, 3000, (300, 200), 3)
+  depth = torch.round(depth * 50) / 50       # many quantized ties
+  got = map_to_tiles(pts, depth, (300, 200), config, use_depth16=True)
+  want = map_to_tiles(pts.cpu(), depth.cpu(), (300, 200), config, use_depth16=True)
+  for name in ("overlap_to_point", "overlap_to_tile", "tile_ranges",
+               "total_overlaps", "overflow", "point_offsets"):
+    torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name),
+                               rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_train_epoch_on_card_matches_cpu(cuda_device):
+  """Three trainer steps on the card (each launching each kernel once)
+  against the same steps on the CPU, float32: the loss to rtol 1e-4 and
+  each parameter to relative L2 1e-2 (LaProp divides each gradient by its
+  running RMS, so a near-zero gradient that rounds differently moves its
+  parameter by up to a learning-rate step)."""
+  from taichi_gaussian_rasterizer_tpu_torch.examples import fit_image_gaussians as fit
+  from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import random_2d_gaussians
+
+  size = (128, 96)
+  config = RasterConfig(tile_size=16, compute_point_heuristic=True)
+  g = random_2d_gaussians(torch.Generator().manual_seed(0), 500, size,
+                          alpha_range=(0.7, 0.9))
+  ref = fit.synthetic_target(size)
+  kernels = (forward.RASTER_FORWARD, backward.RASTER_BACKWARD, reduce.SEGMENT_SUM)
+  before = [k.launch_count for k in kernels]
+  card = fit.train_epoch(fit.make_parameter_class(g.to(cuda_device)),
+                         ref.to(cuda_device), size, config, epoch_size=3)
+  torch.cuda.synchronize()
+  assert [k.launch_count - b for k, b in zip(kernels, before)] == [3, 3, 3]
+  cpu = fit.train_epoch(fit.make_parameter_class(g), ref, size, config,
+                        epoch_size=3)
+  torch.testing.assert_close(card[4].cpu(), cpu[4], rtol=1e-4, atol=0)
+  for k in fit.TENSOR_KEYS:
+    got, want = card[0].tensors[k].cpu(), cpu[0].tensors[k]
+    assert float((got - want).norm()) <= 1e-2 * float(want.norm()), k
+  assert (card[3] >= 0).all() and torch.isfinite(card[2]).all()

@@ -128,26 +128,89 @@ def test_cpu_autograd_reaches_points_and_features():
   torch.testing.assert_close(f.grad, f.grad[:, :1].expand(-1, 3))
 
 
+@pytest.mark.parametrize("option", ["truncate_mapping", "probe_visit_chunks"])
+def test_unported_options_raise(option):
+  """Saturation-front truncation is not ported: it raises."""
+  with pytest.raises(NotImplementedError, match="ROADMAP"):
+    getattr(raster_function, option)()
+
+
 @pytest.mark.parametrize("option", [
     "compute_visibility", "compute_point_heuristic", "heuristic_sink",
-    "use_depth16", "truncate_mapping", "probe_visit_chunks"])
-def test_unported_options_raise(option):
-  """The forward's per-point visibility is not ported: compute_visibility,
-  and compute_point_heuristic without a visibility sink (with or without
-  a heuristic sink), raise, as do depth16 keys and truncation."""
+    "use_depth16"])
+def test_formerly_unported_options_run(option):
+  """The options that raised before the forward visibility and depth16
+  keys were ported: each renders the image the plain render gives (atol
+  1e-12), and the visibility options fill RasterOut.visibility, whose sum
+  is the weight image's (the image is 16x16, so every pixel counts)."""
   points, depth, feats = scenes.points2d(5, 20, (16, 16))
   pts, d, f = (scenes.to_torch(x) for x in (points, depth, feats))
   config = RasterConfig(tile_size=8)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    if option in ("compute_visibility", "compute_point_heuristic"):
-      rasterize(pts, d, f, (16, 16), config.replace(**{option: True}))
-    elif option == "heuristic_sink":
-      rasterize(pts, d, f, (16, 16), config.replace(compute_point_heuristic=True),
-                heuristic_sink=torch.zeros(20, 2, dtype=torch.float64))
-    elif option == "use_depth16":
-      rasterize(pts, d, f, (16, 16), config, use_depth16=True)
-    else:
-      getattr(raster_function, option)()
+  plain = rasterize(pts, d, f, (16, 16), config)
+  if option in ("compute_visibility", "compute_point_heuristic"):
+    out = rasterize(pts, d, f, (16, 16), config.replace(**{option: True}))
+  elif option == "heuristic_sink":
+    out = rasterize(pts, d, f, (16, 16), config.replace(compute_point_heuristic=True),
+                    heuristic_sink=torch.zeros(20, 2, dtype=torch.float64))
+  else:
+    out = rasterize(pts, d, f, (16, 16), config, use_depth16=True)
+  torch.testing.assert_close(out.image, plain.image, rtol=0, atol=1e-12)
+  assert out.bin_overflow is None and out.point_heuristic is None
+  if option == "use_depth16":
+    assert out.visibility is None
+  else:
+    assert not out.visibility.requires_grad and (out.visibility >= 0).all()
+    torch.testing.assert_close(out.visibility.sum(), plain.image_weight.sum())
+
+
+VIS_SIZE = (64, 48)     # a tile multiple: the JAX visibility counts the same pixels
+
+
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("blending", [True, False])
+def test_forward_visibility_matches_jax(antialias, blending):
+  """compute_visibility against the JAX package's forward visibility
+  (float64, atol 1e-8; in quantile mode the counts of selecting pixels,
+  exactly)."""
+  s = SCENES["saturating"]
+  points, depth, feats = scenes.points2d(s["seed"], N, VIS_SIZE, s["sigma_range"],
+                                         s["alpha_range"])
+  cfg = dict(antialias=antialias, use_alpha_blending=blending,
+             compute_visibility=True)
+  jcfg = JaxRasterConfig(tile_size=8, points_per_chunk=8, **cfg)
+  jpts = jnp.asarray(points)
+  jmap = jax_map_to_tiles(jpts, jnp.asarray(depth), VIS_SIZE, jcfg)
+  want = jax_rasterize_with_tiles(jpts, jnp.asarray(feats), jmap, VIS_SIZE, jcfg)
+  got = rasterize(scenes.to_torch(points), scenes.to_torch(depth),
+                  scenes.to_torch(feats), VIS_SIZE, RasterConfig(tile_size=8, **cfg))
+  assert got.visibility.shape == (N,)
+  # quantile mode selects the point crossing 1e-4 of weight: the front ones
+  assert (got.visibility > 0).sum() > (N // 2 if blending else 5)
+  np.testing.assert_allclose(got.visibility.numpy(), np.asarray(want.visibility),
+                             rtol=0, atol=1e-8)
+  if not blending:
+    np.testing.assert_array_equal(got.visibility.numpy(),
+                                  np.round(got.visibility.numpy()))
+
+
+@pytest.mark.parametrize("antialias", [False, True])
+def test_forward_visibility_equals_the_sink(antialias):
+  """On a frame with partial edge tiles: the forward's visibility equals
+  the visibility sink's gradient (atol 1e-12) and adds up to the weight
+  image (rtol 1e-12)."""
+  points, depth, feats = scenes.points2d(7, N, SIZE)
+  pts = scenes.to_torch(points).requires_grad_()
+  vs = torch.zeros(N, dtype=torch.float64, requires_grad=True)
+  config = RasterConfig(tile_size=8, antialias=antialias, compute_visibility=True)
+  d, f = scenes.to_torch(depth), scenes.to_torch(feats)
+  out = rasterize(pts, d, f, SIZE, config)
+  rasterize(pts, d, f, SIZE, config, visibility_sink=vs).image.sum().backward()
+  torch.testing.assert_close(out.visibility, vs.grad, rtol=0, atol=1e-12)
+  torch.testing.assert_close(out.visibility.sum(), out.image_weight.sum(),
+                             rtol=1e-12, atol=0)
+  # the image stays differentiable beside the detached visibility
+  out.image.sum().backward()
+  assert torch.isfinite(pts.grad).all()
 
 
 @pytest.mark.parametrize("heuristic", [False, True])

@@ -178,6 +178,52 @@ def test_render_with_heuristics_float64_matches_jax():
   assert r.visible_mask.sum() > 0
 
 
+@pytest.mark.parametrize("scene", ["translucent", "saturating"])
+def test_render_visibility_and_depth16_float64_match_jax(scene):
+  """compute_visibility fills point_visibility as the JAX render does, and
+  use_depth16 (deterministic) renders the JAX depth16 image; float64, atol
+  1e-8. 64x48 with 8x8 tiles: no partial tiles."""
+  s = SCENES[scene]
+  cam = scenes.camera(s["seed"] + 20, SIZE)
+  g = scenes.gaussians3d(s["seed"] + 21, 300, cam, scale_factor=s["scale_factor"],
+                         alpha_range=s["alpha_range"])
+  jg, jcam = scenes.jax_scene(cam, g, np.float64)
+  tg, tcam = scenes.torch_scene(cam, g, np.float64)
+  kw = dict(compute_visibility=True, deterministic=True)
+  want = tgr_jax.render_gaussians(
+      jg, jcam, tgr_jax.RasterConfig(tile_size=8, points_per_chunk=8, **kw),
+      use_depth16=True)
+  got = render_gaussians(tg, tcam, RasterConfig(tile_size=8, **kw), use_depth16=True)
+  for name in ("image", "image_weight", "point_visibility"):
+    np.testing.assert_allclose(getattr(got, name).numpy(),
+                               np.asarray(getattr(want, name)), atol=1e-8,
+                               rtol=0, err_msg=name)
+  assert got.visible_mask.sum() > 0
+  full = render_gaussians(tg, tcam, RasterConfig(tile_size=8, **kw))
+  torch.testing.assert_close(got.image, full.image, rtol=0, atol=1e-12)
+
+
+def test_rendering_detach():
+  """Rendering.detach cuts every tensor, the camera's included, from the
+  graph, and keeps the values."""
+  cam = scenes.camera(22, SIZE)
+  g = scenes.gaussians3d(23, 100, cam)
+  tg, tcam = scenes.torch_scene(cam, g, np.float64)
+  tg = tg.replace(position=tg.position.requires_grad_())
+  tcam = dataclasses.replace(tcam, T_camera_world=tcam.T_camera_world.requires_grad_())
+  r = render_gaussians(tg, tcam, RasterConfig(tile_size=8, compute_visibility=True),
+                       render_depth=True)
+  assert r.image.requires_grad and r.gaussians2d.requires_grad
+  d = r.detach()
+  for f in dataclasses.fields(d):
+    v = getattr(d, f.name)
+    if isinstance(v, torch.Tensor):
+      assert not v.requires_grad, f.name
+      torch.testing.assert_close(v, getattr(r, f.name).detach(), rtol=0, atol=0)
+  assert not d.camera.T_camera_world.requires_grad
+  assert d.config == r.config and d.median_depth is None
+
+
 def test_viewspace_gradient():
   grad = torch.tensor([[3.0, 4.0, 1, 1, 1, 1, 1], [0.0, -2.0, 5, 5, 5, 5, 5]])
   torch.testing.assert_close(viewspace_gradient(grad), torch.tensor([5.0, 2.0]))
@@ -230,12 +276,17 @@ def _run_python(code, **env):
 
 
 def test_package_imports_without_jax_nvcc_or_triton():
-  """Importing the port pulls in no JAX, and its kernel modules import
-  (building nothing) on a machine with no nvcc and no triton."""
+  """Importing the port, its optimizers, the 2D renderer and the examples
+  pulls in no JAX, and its kernel modules import (building nothing) on a
+  machine with no nvcc and no triton."""
   out = _run_python(
       "import sys\n"
       "import taichi_gaussian_rasterizer_tpu_torch\n"
       "from taichi_gaussian_rasterizer_tpu_torch.ops.raster import backward, forward, reduce\n"
+      "from taichi_gaussian_rasterizer_tpu_torch import optim, convert\n"
+      "from taichi_gaussian_rasterizer_tpu_torch.models import renderer2d\n"
+      "from taichi_gaussian_rasterizer_tpu_torch.examples import (\n"
+      "    fit_image_gaussians, test_backward, vis_split)\n"
       "mods = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton')]\n"
       "ks = (forward.RASTER_FORWARD, backward.RASTER_BACKWARD, reduce.SEGMENT_SUM)\n"
       "print(mods, *[(k._fn, k.launch_count) for k in ks])\n",

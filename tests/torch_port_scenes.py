@@ -80,6 +80,24 @@ def points2d(seed, n, image_size, sigma_range=(0.8, 4.0),
   return points, depth, rng.uniform(size=(n, n_features))
 
 
+def gaussians2d(seed, n, image_size, scale_factor=1.0, alpha_range=(0.3, 0.9),
+                n_features=3):
+  """Gaussians2D fields as numpy arrays: uniform positions over the image,
+  distinct depths in (0, 1), scales ~ width / sqrt(n), unit rotations."""
+  rng = np.random.default_rng(seed)
+  w, h = image_size
+  rot = rng.normal(size=(n, 2))
+  alpha = rng.uniform(*alpha_range, size=n)
+  scale = scale_factor * w / (1 + np.sqrt(n))
+  return dict(
+      position=rng.uniform(size=(n, 2)) * [w, h],
+      z_depth=(rng.permutation(n)[:, None] + 0.5) / n,
+      log_scaling=np.log((rng.uniform(size=(n, 2)) + 0.2) * scale),
+      rotation=rot / np.linalg.norm(rot, axis=1, keepdims=True),
+      alpha_logit=np.log(alpha / (1 - alpha))[:, None],
+      feature=rng.uniform(size=(n, n_features)))
+
+
 def jax_scene(cam, g, dtype):
   import jax.numpy as jnp
   import taichi_gaussian_rasterizer_tpu as tgr_jax
