@@ -57,7 +57,7 @@ target. Phases, each printing its lines:
 7. the 2D trainer at full size -- `fit(synthetic_target((2048, 1536)),
    n=500_000, target=1_000_000, total_iters=60,
    config=RasterConfig(compute_point_heuristic=True), seed=0)`: epochs of
-   10, 15 and 35 steps with two split/prune rounds. Checks one launch of
+   11, 16 and 33 steps with two split/prune rounds. Checks one launch of
    each kernel a step, 1,000,000 points at the end with every optimizer
    state row count equal to it, finite parameters and the last epoch's
    PSNR above the first's; prints each epoch's N, PSNR, loss, median
@@ -80,6 +80,12 @@ Tolerances (float32, kernel against plain on the same inputs):
 * forward visibility: the forward's tolerances above, on the per-slot
   sums.
 
+Phases 2b, 2c, 3, 4b and 5 print each kernel's bound beside its time: the
+larger of its bytes over the card's memory rate and its FP32 operations
+over the card's FP32 rate, the operations counted on the (pixel, slot)
+pairs of the phase's own frame whose alpha passes the threshold
+(`ops/raster/bounds.py`), and the share of it the kernel reaches.
+
 Exits non-zero, with no result line, when there is no CUDA device, when
 the port's package is not beside this script, or when any phase fails.
 The line before the last is a JSON summary of the kernels; the last line
@@ -96,6 +102,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -201,6 +208,52 @@ def ptxas_summary(log: str) -> str:
           f"spill stores {min(spills)}-{max(spills)} bytes")
 
 
+def project_and_map(gaussians, camera, config, use_depth16=False):
+  """What render_gaussians does before its rasterize call: (points,
+  mapping)."""
+  import taichi_gaussian_rasterizer_tpu_torch as tgr
+  from taichi_gaussian_rasterizer_tpu_torch.ops import lib
+  points, depths, _ = tgr.project_to_image(gaussians, camera, config)
+  near, far = camera.near_plane, camera.far_plane
+  ndc = lib.ndc_depth(torch.clamp(depths, min=near), near, far)
+  return points, tgr.map_to_tiles(points, ndc[:, 0], camera.image_size,
+                                  config, use_depth16=use_depth16)
+
+
+def bench_scene(n: int, size, device):
+  """bench.py's recipe at n gaussians (random_camera, then
+  random_3d_gaussians, from seed 0): (scene, camera)."""
+  from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import (
+      random_3d_gaussians, random_camera)
+  gen = torch.Generator(device=device).manual_seed(0)
+  camera = random_camera(gen, image_size=tuple(size))
+  return random_3d_gaussians(gen, n, camera), camera
+
+
+def saturating_frame(device):
+  """Phase 2's frame: 20k gaussians at 640x480 (seed 1), larger and more
+  opaque than the defaults (scale x2, alpha 0.5-0.99) so that most pixels
+  saturate and the saturation gate and early exit decide the result;
+  RasterConfig(), the projected points, their mapping, the features and a
+  seeded cotangent image and weight (seed 3)."""
+  import taichi_gaussian_rasterizer_tpu_torch as tgr
+  from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import (
+      random_3d_gaussians, random_camera)
+  size, n = (640, 480), 20_000
+  gen = torch.Generator(device=device).manual_seed(1)
+  camera = random_camera(gen, image_size=size)
+  scene = random_3d_gaussians(gen, n, camera, scale_factor=2.0,
+                              alpha_range=(0.5, 0.99))
+  config = tgr.RasterConfig()
+  points, mapping = project_and_map(scene, camera, config)
+  gen_g = torch.Generator(device=device).manual_seed(3)
+  g_image = torch.randn((size[1], size[0], 3), generator=gen_g, device=device)
+  g_weight = torch.randn((size[1], size[0]), generator=gen_g, device=device)
+  return types.SimpleNamespace(
+      size=size, n=n, config=config, points=points, mapping=mapping,
+      features=scene.feature.contiguous(), g_image=g_image, g_weight=g_weight)
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   parser.add_argument("--n", type=int, default=1_000_000,
@@ -217,12 +270,11 @@ def main() -> int:
   import taichi_gaussian_rasterizer_tpu_torch as tgr
   from taichi_gaussian_rasterizer_tpu_torch.examples import (
       fit_image_gaussians as fit2d)
-  from taichi_gaussian_rasterizer_tpu_torch.ops import lib
   from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
-      backward, forward, reduce, reduce_slots_by_point, tiles)
+      backward, bounds, forward, reduce, reduce_slots_by_point, tiles)
   from taichi_gaussian_rasterizer_tpu_torch.utils.cuda_build import load_all
   from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import (
-      random_3d_gaussians, random_camera)
+      random_3d_gaussians)
 
   torch.backends.cuda.matmul.allow_tf32 = False   # the plain version's einsum
   torch.backends.cudnn.allow_tf32 = False
@@ -246,13 +298,10 @@ def main() -> int:
                                            tile_ids=tile_ids)
     return torch.cat([img, w[:, None]], 1)
 
-  def project_and_map(gaussians, camera, config, use_depth16=False):
-    """What render_gaussians does before its rasterize call."""
-    points, depths, _ = tgr.project_to_image(gaussians, camera, config)
-    near, far = camera.near_plane, camera.far_plane
-    ndc = lib.ndc_depth(torch.clamp(depths, min=near), near, far)
-    return points, tgr.map_to_tiles(points, ndc[:, 0], camera.image_size,
-                                    config, use_depth16=use_depth16)
+  def bound_line(b, ms):
+    """The kernel's bound on this frame beside its measured time."""
+    return (f"bound {b['ms']:.4f} ms ({b['bound_by']}: {b['ops'] / 1e9:.3f} "
+            f"GFLOP, {b['bytes'] / 1e6:.1f} MB), share {b['ms'] / ms:.3f}")
 
   # ---- phase 1: build --------------------------------------------------
   print(f"[1 build] {card}; torch {torch.__version__}, CUDA "
@@ -267,16 +316,9 @@ def main() -> int:
 
   with torch.no_grad():
     # ---- phase 2: kernel against plain, all four modes -----------------
-    size2, n2 = (640, 480), 20_000
-    gen = torch.Generator(device=dev).manual_seed(1)
-    camera2 = random_camera(gen, image_size=size2)
-    # larger, more opaque splats than the defaults so that most pixels
-    # saturate and the saturation gate and early exit decide the result
-    scene2 = random_3d_gaussians(gen, n2, camera2, scale_factor=2.0,
-                                 alpha_range=(0.5, 0.99))
-    config2 = tgr.RasterConfig()
-    points2, mapping2 = project_and_map(scene2, camera2, config2)
-    features2 = scene2.feature.contiguous()
+    frame2 = saturating_frame(dev)
+    size2, n2, config2 = frame2.size, frame2.n, frame2.config
+    points2, mapping2, features2 = frame2.points, frame2.mapping, frame2.features
     print(f"[2 kernel vs plain] {n2} gaussians @{size2[0]}x{size2[1]}, "
           f"{int(mapping2.total_overlaps)} overlaps, float32")
     for antialias in (False, True):
@@ -303,12 +345,14 @@ def main() -> int:
         print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
 
     # ---- phase 2b: backward kernels against plain -----------------------
-    gen_g = torch.Generator(device=dev).manual_seed(3)
-    g_img2 = torch.randn((size2[1], size2[0], 3), generator=gen_g, device=dev)
-    g_w2 = torch.randn((size2[1], size2[0]), generator=gen_g, device=dev)
+    g_img2, g_w2 = frame2.g_image, frame2.g_weight
     print(f"[2b backward vs plain] phase 2's scene, seeded cotangent image "
           f"and weight")
+    k2 = int(mapping2.total_overlaps)
+    tiles2 = mapping2.tile_ranges.shape[0]
     for antialias in (False, True):
+      work2 = bounds.raster_work(points2, mapping2,
+                                 config2.replace(antialias=antialias), size2)
       for extra in (False, True):
         cfg = config2.replace(antialias=antialias)
         image, weight = forward.rasterize_forward(points2, features2, mapping2,
@@ -325,8 +369,10 @@ def main() -> int:
         assert torch.equal(got, again), f"{label}: two backward runs differ"
         k_ms = cuda_ms(lambda: backward.rasterize_backward(*bw2), reps=20)
         p_ms = cuda_ms(lambda: backward.raster_backward_plain(*bw2), reps=2)
+        b = bounds.backward_bound(work2, n2, 3, k2, tiles2, size2, antialias,
+                                  extra, extra)
         print(f"    bitwise identical on a second run; kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms")
+              f"plain {p_ms:.4f} ms; {bound_line(b, k_ms)}")
         if not antialias and not extra:
           slots2 = got
     keys2, order2 = torch.sort(mapping2.overlap_to_point, stable=True)
@@ -340,8 +386,9 @@ def main() -> int:
     k_ms = cuda_ms(lambda: reduce.segment_sums_cuda(
         grouped2, mapping2.point_offsets, n2), reps=20)
     p_ms = cuda_ms(lambda: reduce.segment_sums_plain(keys2, grouped2, n2), reps=5)
+    b = bounds.segment_sum_bound(grouped2.shape[0], k2, n2)
     print(f"    bitwise identical on a second run; kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms")
+          f"plain {p_ms:.4f} ms; {bound_line(b, k_ms)}")
 
     # ---- phase 2c: forward visibility against plain ----------------------
     print(f"[2c forward visibility vs plain] phase 2's scene, "
@@ -372,14 +419,15 @@ def main() -> int:
           assert rel <= 1e-5, f"{label}: visibility identity off by {rel:.3e}"
         k_ms = cuda_ms(vis_kernel, reps=20)
         p_ms = cuda_ms(vis_plain, reps=3)
+        b = bounds.forward_bound(
+            bounds.raster_work(points2, mapping2, cfg, size2), n2, 3, k2,
+            tiles2, size2, antialias, visibility=True)
         print(f"    bitwise identical on a second run; kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms")
+              f"plain {p_ms:.4f} ms; {bound_line(b, k_ms)}")
 
     # ---- phase 3: the slice at full size -------------------------------
     width, height = args.size
-    gen = torch.Generator(device=dev).manual_seed(0)
-    camera = random_camera(gen, image_size=(width, height))
-    scene = random_3d_gaussians(gen, args.n, camera)
+    scene, camera = bench_scene(args.n, (width, height), dev)
     config = tgr.RasterConfig()
     print(f"[3 render] {args.n} gaussians @{width}x{height}, RGB, "
           f"RasterConfig() defaults")
@@ -437,8 +485,14 @@ def main() -> int:
         points, features, mapping, (width, height), config), reps=10)
     fwd_plain_ms = cuda_ms(lambda: plain_image(points, features, mapping,
                                                (width, height), config), reps=1)
+    work3 = bounds.raster_work(points, mapping, config, (width, height))
+    fwd_bound = bounds.forward_bound(work3, args.n, 3, total, n_tiles,
+                                     (width, height), config.antialias)
     print(f"  raster over the whole frame (CUDA events): kernel {fwd_ms:.4f} ms, "
-          f"plain {fwd_plain_ms:.4f} ms; peak device memory "
+          f"plain {fwd_plain_ms:.4f} ms; {bound_line(fwd_bound, fwd_ms)}; "
+          f"{work3['evaluated']} (pixel, slot) pairs before the pixels stop, "
+          f"{work3['boxed']} inside their threshold boxes, {work3['active']} "
+          f"above the alpha threshold; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # ---- phase 4: the serving configuration ----------------------------
@@ -529,8 +583,12 @@ def main() -> int:
     map_ms = host_ms(lambda: project_and_map(scene, camera, config), 5)
     map16_ms = host_ms(lambda: project_and_map(scene, camera, config,
                                                use_depth16=True), 5)
+    vis_bound = bounds.forward_bound(work3, args.n, 3, total, n_tiles,
+                                     (width, height), config.antialias,
+                                     visibility=True)
     print(f"  forward kernel with visibility {vis_ms:.4f} ms (without: "
-          f"{fwd_ms:.4f}), per-point reduction {red_vis_ms:.4f} ms (CUDA "
+          f"{fwd_ms:.4f}; {bound_line(vis_bound, vis_ms)}), per-point "
+          f"reduction {red_vis_ms:.4f} ms (CUDA "
           f"events); projection + mapper {map_ms:.3f} ms with full-depth "
           f"keys, {map16_ms:.3f} ms with depth16 keys (host clock, median of 5)")
 
@@ -609,6 +667,16 @@ def main() -> int:
         grouped, mapping.point_offsets, args.n), reps=20)
     seg_plain_ms = cuda_ms(lambda: reduce.segment_sums_plain(
         keys, grouped, args.n), reps=5)
+    # the one PyTorch call that computes the segment sums
+    sums = torch.zeros((args.n + 1, grouped.shape[0]), device=dev)
+    keys64, rows_t = keys.to(torch.int64), grouped.T
+    seg_library_ms = cuda_ms(lambda: sums.index_add_(0, keys64, rows_t), reps=5)
+    k5 = int(mapping.total_overlaps)
+    work5 = bounds.raster_work(points, mapping, config, (width, height))
+    bwd_bound = bounds.backward_bound(work5, args.n, 3, k5, n_tiles,
+                                      (width, height), config.antialias,
+                                      False, False)
+    seg_bound = bounds.segment_sum_bound(grouped.shape[0], k5, args.n)
   step = statistics.median(step_ms)
   print(f"  ms/step median {step:.3f} (5 steps: "
         f"{', '.join(f'{t:.3f}' for t in step_ms)})")
@@ -618,11 +686,12 @@ def main() -> int:
         f"events); the rest -- autograd of projection and SH, the chain, "
         f"SGD and glue -- {step - fwd_step_ms - bwd_ms - red_ms:.3f} ms by "
         f"difference")
-  print(f"  backward kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; "
-        f"segment-sum kernel {seg_ms:.4f} ms, plain {seg_plain_ms:.4f} ms "
-        f"(whole frame, CUDA events; {slots.shape[0]} rows x "
-        f"{slots.shape[1]} slots); peak device memory in the 5 steps "
-        f"{train_peak:.2f} GiB")
+  print(f"  backward kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, "
+        f"{bound_line(bwd_bound, bwd_ms)}; segment-sum kernel {seg_ms:.4f} "
+        f"ms, plain {seg_plain_ms:.4f} ms, index_add_ {seg_library_ms:.4f} "
+        f"ms, {bound_line(seg_bound, seg_ms)} (whole frame, CUDA events; "
+        f"{slots.shape[0]} rows x {slots.shape[1]} slots); peak device memory "
+        f"in the 5 steps {train_peak:.2f} GiB")
 
   # ---- phase 6: training mode -------------------------------------------
   print(f"[6 training mode] render_with_heuristics, same size")
@@ -689,17 +758,20 @@ def main() -> int:
         f"equal to it, finite parameters; PSNR {history[0]['psnr']:.3f} after "
         f"the first epoch, {history[-1]['psnr']:.3f} after the last")
 
+  # no PyTorch call computes the forward or the backward blend
   measured = {
-      "raster_forward": (fit_launches, fwd_err, fwd_ms, fwd_plain_ms),
-      "raster_backward": (fit_launches, bwd_err, bwd_ms, bwd_plain_ms),
-      "segment_sum": (fit_launches, seg_err, seg_ms, seg_plain_ms),
+      "raster_forward": (fwd_err, fwd_ms, fwd_plain_ms, fwd_bound, None),
+      "raster_backward": (bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, None),
+      "segment_sum": (seg_err, seg_ms, seg_plain_ms, seg_bound, seg_library_ms),
   }
   print(card_line())
   print(json.dumps({"kernels": [
       {"name": name, "route": "cuda", "source": KERNELS[name][0],
-       "replaces": KERNELS[name][1], "launches": launch[name],
-       "max_abs_err": err, "ms": ms, "plain_ms": plain}
-      for name, (launch, err, ms, plain) in measured.items()]}))
+       "replaces": KERNELS[name][1], "launches": fit_launches[name],
+       "max_abs_err": err, "ms": ms, "plain_ms": plain,
+       "bound_ms": bound["ms"], "bound_by": bound["bound_by"],
+       "library_ms": library}
+      for name, (err, ms, plain, bound, library) in measured.items()]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": device_name,
       "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """Carry parameters into the port from numpy arrays.
 
 The JAX package's arrays become numpy with `np.asarray`; these helpers
-turn them into this package's tensors on an explicit device and dtype,
-so both packages can be fed the same scene.
+turn them into this package's tensors on a device (the card unless the
+caller names another, as the CPU tests do) and dtype, so both packages
+can be fed the same scene.
 """
 
 from typing import Tuple
@@ -19,7 +20,7 @@ def _tensor(x, device, dtype) -> torch.Tensor:
 
 
 def gaussians_from_numpy(position, log_scaling, rotation, alpha_logit,
-                         feature, device="cpu",
+                         feature, device="cuda",
                          dtype=torch.float32) -> Gaussians3D:
   """numpy arrays (N,3), (N,3), (N,4) xyzw, (N,1), (N,C) or (N,3,K)."""
   return Gaussians3D(
@@ -31,7 +32,7 @@ def gaussians_from_numpy(position, log_scaling, rotation, alpha_logit,
 
 
 def gaussians2d_from_numpy(position, z_depth, log_scaling, rotation,
-                           alpha_logit, feature, device="cpu",
+                           alpha_logit, feature, device="cuda",
                            dtype=torch.float32) -> Gaussians2D:
   """numpy arrays (N,2), (N,1), (N,2), (N,2) unit complex, (N,1), (N,C)."""
   return Gaussians2D(
@@ -44,7 +45,7 @@ def gaussians2d_from_numpy(position, z_depth, log_scaling, rotation,
 
 
 def camera_from_numpy(projection, T_camera_world, near: float, far: float,
-                      image_size: Tuple[int, int], device="cpu",
+                      image_size: Tuple[int, int], device="cuda",
                       dtype=torch.float32) -> CameraParams:
   """projection (4,) [fx, fy, cx, cy]; T_camera_world (4, 4);
   image_size (width, height)."""

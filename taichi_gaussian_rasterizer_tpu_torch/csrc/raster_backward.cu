@@ -23,26 +23,52 @@
 // arithmetic is raster_common.cuh's, the forward kernel's own, so a pixel
 // stops on exactly the point where the forward stopped.
 //
-// What bounds it on an H100: the per-slot sums over the tile's pixels,
-// not FP32 throughput. Each (slot, warp) pair reduces R = 6..26 rows
-// across 32 lanes with 5 shuffles per row, and the block then adds its
-// warps' partials; the pdf and gradient arithmetic per (pixel, slot) pair
-// is a few dozen FP32 operations. At 1M gaussians @2048x1536 (2.6M slots,
-// 9 rows) it takes 7.07 ms on an H100 80GB HBM3 at 700 W, 4.4x the forward
-// kernel on the same frame; the 256-thread instances use 78-99 registers
-// a thread, the 1024-thread ones 64 with small spills. Design: one block per tile, one thread
-// per pixel; a batch of blockDim points is staged in shared memory as in
-// the forward; a warp whose pixels all miss a point (alpha below the
-// threshold, or stopped) skips that point's shuffles and records zeros;
-// per-warp partials of 32 slots at a time are summed over the warps in
-// fixed order and written once, and the block stops once every pixel has
-// stopped (__syncthreads_count). Each slot belongs to one tile, so it is
-// written exactly once: no atomics anywhere, and two runs are bitwise
-// identical.
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3 at 700 W, measured with
+// tools/time_raster_kernels.py): at 1M gaussians @2048x1536 (2.70M slots,
+// 9 rows) the function needs the pdf, the replay and the rows of the 86.7M
+// (pixel, slot) pairs whose alpha passes the threshold: 5.64 GFLOP and 249
+// MB, a bound of 0.084 ms on FP32 operations (ops/raster/bounds.py). The
+// kernel takes 2.31 ms, 3.6% of the bound, and 2.09 ms (3.8%) for the 2D
+// trainer's 12 rows; the one-pixel-a-thread design before it took 7.51 and
+// 7.16 ms. Cutting parts out (the tool's --ablate) shows where the time
+// goes: the transposed reduction 0.61 ms; staging, the batch sums and the
+// tile loop 0.37 ms (the kernel without its slot loop); the slot loop's
+// arithmetic the rest, about 1.3 ms. The threshold box saves only 0.07 ms
+// here (2.37 ms without it): a warp runs every slot some pixel of its 128
+// needs, and 61% of its 5.40M warp-slots hold an active pixel, so the
+// active pixels' gradient arithmetic runs with most lanes idle. The design
+// before spent 1.98 ms of its 7.51 in 5 shuffles a row for each of 8.36M
+// active warp-slots (38.7% of 21.6M).
+//
+// Design: a persistent grid (as many blocks as fit at once) takes tiles
+// longest bin first from the tile queue (raster_common.cuh). A block of
+// ts * ts / ppt threads covers a tile, each thread ppt pixels of a column
+// (4, or 2 for F > 4 or 8x8 tiles), so a staged point is read from shared
+// memory once for ppt pixels and each thread runs ppt independent T chains.
+// A batch of 128 slots (32 for F > 4) is staged in shared memory, with each
+// point's threshold box; a thread skips a slot whose box misses its
+// pixels. For each slot a thread adds its pixels' rows in registers, and a
+// warp where any pixel is active reduces all rows at once with
+// transpose_reduce (16 shuffles for up to 16 rows, 31 for up to 32, against
+// 5 a row before) and stores them with one shared store; the warps'
+// partials of the whole batch are then added in warp order and written
+// once, so a batch costs two block barriers however many slots it holds. A
+// warp whose pixels have all stopped writes zero partials for the rest of
+// the batch and leaves it. The rows are computed in one fixed register
+// layout (point rows, the two heuristic rows when the instance has them,
+// the visibility row, the features) and the launch's flags pick the rows
+// written. A block leaves a tile once every pixel has stopped
+// (__syncthreads_count); slots after that keep the caller's zeros. Each
+// slot belongs to one tile and is written once: no atomics on any output,
+// and two runs are bitwise identical. Tried and dropped, measured the same
+// way: two pixels a thread at 16x16 tiles (slower here and in the
+// visibility forward), and staging through cp.async copies into a raw
+// buffer (its shared memory cost blocks an SM; slower).
 //
 // C interface (bound with ctypes; pointers are device pointers):
 //   int tgr_raster_backward(points (N,7) f32, features (N,F) f32,
 //                           overlap_to_point (K,) i32, tile_ranges (T,2) i32,
+//                           tile_order (T,) i32, tile_counter (1,) i32 scratch,
 //                           image (H,W,F) f32, weight (H,W) f32,
 //                           grad_image (H,W,F) f32, grad_weight (H,W) f32,
 //                           num_tiles, tiles_x, tile_size, width, height, F,
@@ -57,124 +83,178 @@ using namespace tgr;
 
 namespace {
 
-constexpr int kMaxRows = 7 + 2 + 1 + kMaxFeatures;
+// slots staged at a time: the F <= 16 instances hold twice the rows' partials
+__host__ __device__ constexpr int batch_slots(int cap) {
+  return cap <= kSmallFeatures ? 128 : 32;
+}
 
 __host__ __device__ constexpr int point_rows(bool antialias) {
   return antialias ? 7 : 6;
 }
 
-// kMaxThreads bounds the block size the compiler plans registers for:
-// 1024-thread blocks (32x32 tiles) leave 64 registers a thread, smaller
-// tiles get the 256-thread instance and room for the row registers.
-template <int kMaxThreads, bool kAntialias, bool kHeuristic, bool kVisibility>
-__global__ void __launch_bounds__(kMaxThreads)
+// rows of the register layout: point rows, 2 heuristic, 1 visibility, kCap
+// features, padded to the transposed reduction's 16 or 32
+__host__ __device__ constexpr int padded_rows(int cap) {
+  return cap <= kSmallFeatures ? 16 : 32;
+}
+
+template <bool kAntialias, bool kHeuristic, int kCap, int kPPT>
+__global__ void __launch_bounds__(kPPT == 4 ? 256 : 512)
 raster_backward_kernel(const float* __restrict__ points,
                        const float* __restrict__ features,
                        const int* __restrict__ overlap_to_point,
                        const int* __restrict__ tile_ranges,
+                       const int* __restrict__ tile_order,
+                       int* __restrict__ tile_counter,
                        const float* __restrict__ image,
                        const float* __restrict__ weight,
                        const float* __restrict__ grad_image,
                        const float* __restrict__ grad_weight,
-                       int tiles_x, int tile_size, int width, int height,
-                       int num_features, float alpha_threshold,
+                       int num_tiles, int tiles_x, int tile_size, int width,
+                       int height, int num_features, float alpha_threshold,
                        float clamp_max_alpha, float saturate_threshold,
-                       long long k_stride, float* __restrict__ out) {
-  constexpr int kAux0 = point_rows(kAntialias);          // first aux row
-  constexpr int kFeat0 = kAux0 + (kHeuristic ? 2 : 0) + (kVisibility ? 1 : 0);
-  const int rows = kFeat0 + num_features;
+                       int visibility, long long k_stride,
+                       float* __restrict__ out) {
+  constexpr int kNP = point_rows(kAntialias);
+  constexpr int kHeur = kNP, kVis = kNP + 2, kFeat = kNP + 3;
+  constexpr int kRows = padded_rows(kCap);
+  static_assert(kFeat + kCap <= kRows, "rows exceed the reduction");
+  constexpr unsigned kAllDone = (1u << kPPT) - 1;
+  constexpr int batch = batch_slots(kCap);
 
   extern __shared__ float smem[];
-  const int batch = blockDim.x;
-  const int n_warps = batch / 32;
-  float* s_pt = smem;                                // [kPointRows][batch]
-  float* s_feat = s_pt + kPointRows * batch;         // [num_features][batch]
-  float* s_part = s_feat + num_features * batch;     // [rows][n_warps][kSub]
+  __shared__ int s_rowmap[kRows];   // output row -> register row
+  __shared__ int s_slot;
+  const int threads = blockDim.x;
+  const int n_warps = threads / 32;
+  constexpr int part_stride = batch + 1;  // padded: conflict-free stores and reads
+  float* s_pt = smem;                                // [batch][kStageStride]
+  float2* s_ext = reinterpret_cast<float2*>(s_pt + kStageStride * batch);  // [batch]
+  float* s_feat = reinterpret_cast<float*>(s_ext + batch);  // [F][batch]
+  float* s_part = s_feat + num_features * batch;     // [n_warps][kRows][batch + 1]
 
-  const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int tx = tile % tiles_x, ty = tile / tiles_x;
-  const int lx = tid % tile_size, ly = tid / tile_size;
-  const int px = tx * tile_size + lx, py = ty * tile_size + ly;
-  const bool inside = px < width && py < height;
-  const float ox = static_cast<float>(tx * tile_size);
-  const float oy = static_cast<float>(ty * tile_size);
-  const float cx = lx + 0.5f, cy = ly + 0.5f;
-
-  const int start = tile_ranges[2 * tile];
-  const int end = tile_ranges[2 * tile + 1];
-
-  // per-pixel cotangents and E = sum_c image_c * grad_c over the features
-  // and the weight channel
-  float g[kMaxFeatures];
-  float gw = 0.0f, E = 0.0f;
-#pragma unroll
-  for (int f = 0; f < kMaxFeatures; ++f) g[f] = 0.0f;
-  if (inside) {
-    const long long pix = static_cast<long long>(py) * width + px;
-#pragma unroll
-    for (int f = 0; f < kMaxFeatures; ++f) {
-      if (f < num_features) {
-        g[f] = grad_image[pix * num_features + f];
-        E += image[pix * num_features + f] * g[f];
-      }
-    }
-    gw = grad_weight[pix];
-    E += weight[pix] * gw;
+  const int lx = tid % tile_size, ly0 = (tid / tile_size) * kPPT;
+  const float cx = lx + 0.5f;
+  const float log_threshold = logf(alpha_threshold);
+  const int rows = kNP + (kHeuristic ? 2 : 0) + (visibility ? 1 : 0) + num_features;
+  if (tid == 0) {
+    int r = 0;
+    for (int i = 0; i < kNP; ++i) s_rowmap[r++] = i;
+    if (kHeuristic) { s_rowmap[r++] = kHeur; s_rowmap[r++] = kHeur + 1; }
+    if (visibility) s_rowmap[r++] = kVis;
+    for (int f = 0; f < num_features; ++f) s_rowmap[r++] = kFeat + f;
   }
 
-  float T = 1.0f, C = 0.0f;
-  bool done = !inside;
+  for (;;) {
+    const int tile = next_tile(tile_counter, tile_order, num_tiles, &s_slot);
+    if (tile < 0) break;
+    const int tx = tile % tiles_x, ty = tile / tiles_x;
+    const float ox = static_cast<float>(tx * tile_size);
+    const float oy = static_cast<float>(ty * tile_size);
+    const int start = tile_ranges[2 * tile];
+    const int end = tile_ranges[2 * tile + 1];
 
-  for (int base = start; base < end; base += batch) {
-    // also the barrier before the batch buffers are overwritten
-    if (__syncthreads_count(!done) == 0) break;
-    const int count = min(batch, end - base);   // the last batch is short
-
-    if (tid < count) {
-      const int idx = overlap_to_point[base + tid];
-      stage_point<kAntialias>(points + static_cast<long long>(idx) * 7, ox, oy,
-                              s_pt, batch, tid);
-      const float* feat = features + static_cast<long long>(idx) * num_features;
-      for (int f = 0; f < num_features; ++f) s_feat[f * batch + tid] = feat[f];
+    // per pixel: cotangents, E = sum_c image_c * grad_c over the features
+    // and the weight channel, T and C
+    float g[kPPT][kCap], gw[kPPT], E[kPPT], T[kPPT], C[kPPT];
+    unsigned done = 0;
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k) {
+      const int ly = ly0 + k;
+      const int px = tx * tile_size + lx, py = ty * tile_size + ly;
+      gw[k] = 0.0f;
+      E[k] = 0.0f;
+      T[k] = 1.0f;
+      C[k] = 0.0f;
+#pragma unroll
+      for (int f = 0; f < kCap; ++f) g[k][f] = 0.0f;
+      if (ly < tile_size && px < width && py < height) {
+        const long long pix = static_cast<long long>(py) * width + px;
+#pragma unroll
+        for (int f = 0; f < kCap; ++f) {
+          if (f < num_features) {
+            g[k][f] = grad_image[pix * num_features + f];
+            E[k] += image[pix * num_features + f] * g[k][f];
+          }
+        }
+        gw[k] = grad_weight[pix];
+        E[k] += weight[pix] * gw[k];
+      } else {
+        done |= 1u << k;
+      }
     }
-    __syncthreads();
 
-    int alive = 1;
-    for (int sub = 0; sub < count && alive; sub += kSub) {
-      const int n_sub = min(kSub, count - sub);
-      for (int jj = 0; jj < n_sub; ++jj) {
-        const int j = sub + jj;
-        float v[kMaxRows];
+    for (int base = start; base < end; base += batch) {
+      const int count = min(batch, end - base);   // the last batch is short
+      stage_batch<kAntialias>(points, features, overlap_to_point, base, count,
+                              num_features, ox, oy, log_threshold, s_pt,
+                              s_feat, s_ext, batch);
+      __syncthreads();
+
+      for (int j = 0; j < count; ++j) {
+        // once the warp's pixels have all stopped, its partials of the
+        // batch's remaining slots are zeros
+        if (__all_sync(kFullMask, done == kAllDone)) {
+          float* part = s_part + warp * kRows * part_stride;
+          for (int r = 0; r < kRows; ++r) {
+            for (int i = j + lane; i < count; i += 32) part[r * part_stride + i] = 0.0f;
+          }
+          break;
+        }
+        float v[kRows];
 #pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) v[r] = 0.0f;
-        bool active = false;
-        if (!done) {
-          AntialiasTerms t;
-          const float a_raw = alpha_raw<kAntialias>(s_pt, batch, j, cx, cy, &t);
-          // a stopped pixel is done, so the saturation gate is open here;
-          // below the threshold the gated alpha is 0 and every row is 0
-          if (a_raw > alpha_threshold) {
-            active = true;
-            const float a = fminf(a_raw, clamp_max_alpha);
-            const float w = __fmul_rn(a, T);
-            float D = gw;
+        for (int r = 0; r < kRows; ++r) v[r] = 0.0f;
+        bool any = false;
+        // a thread skips a slot whose threshold box misses its pixels
+        // (raster_common.cuh)
+        if (done != kAllDone && !outside_box(s_pt, s_ext, j, cx, ly0, kPPT)) {
+          const Staged p = load_staged(s_pt, j);
+          // the conic pre-gate alphas of the thread's pixels first, as
+          // independent chains; the antialiased ones below, where the
+          // partials reuse their terms
+          float a_raws[kPPT];
 #pragma unroll
-            for (int f = 0; f < kMaxFeatures; ++f) {
-              if (f < num_features) D += s_feat[f * batch + j] * g[f];
+          for (int k = 0; k < kPPT; ++k) {
+            AntialiasTerms unused;
+            if (!kAntialias) {
+              a_raws[k] = alpha_raw<false>(p, cx, (ly0 + k) + 0.5f, &unused);
             }
-            C += w * D;
+          }
+          float feat[kCap];
+#pragma unroll
+          for (int k = 0; k < kPPT; ++k) {
+            if (done & (1u << k)) continue;
+            const float cy = (ly0 + k) + 0.5f;
+            AntialiasTerms t;
+            const float a_raw = kAntialias ? alpha_raw<true>(p, cx, cy, &t) : a_raws[k];
+            // a stopped pixel is done, so the saturation gate is open here;
+            // below the threshold the gated alpha is 0 and every row is 0
+            if (!(a_raw > alpha_threshold)) continue;
+            if (!any) {
+#pragma unroll
+              for (int f = 0; f < kCap; ++f) {
+                feat[f] = f < num_features ? s_feat[f * batch + j] : 0.0f;
+              }
+              any = true;
+            }
+            const float a = fminf(a_raw, clamp_max_alpha);
+            const float w = __fmul_rn(a, T[k]);
+            float D = gw[k];
+#pragma unroll
+            for (int f = 0; f < kCap; ++f) D += feat[f] * g[k][f];
+            C[k] += w * D;
             // the clamp gate: d a / d a_raw is 0 where alpha was clamped
             const float dl = a_raw < clamp_max_alpha
-                ? T * D - (E - C) / (1.0f - a) : 0.0f;
+                ? T[k] * D - __fdividef(E[k] - C[k], 1.0f - a) : 0.0f;
 
-            const float dx = cx - s_pt[0 * batch + j];
-            const float dy = cy - s_pt[1 * batch + j];
+            const float dx = cx - p.r[0];
+            const float dy = cy - p.r[1];
             if (kAntialias) {
-              const float ax = s_pt[2 * batch + j], ay = s_pt[3 * batch + j];
-              const float sx = s_pt[4 * batch + j], sy = s_pt[5 * batch + j];
-              const float pa = s_pt[6 * batch + j];
+              const float ax = p.r[2], ay = p.r[3];
+              const float sx = p.r[4], sy = p.r[5];
+              const float pa = p.r[6];
               // partials of the box-integrated pdf (blend.chunk_pdf_with_grads)
               float ds_dx[4], ds_ds[4];
 #pragma unroll
@@ -190,146 +270,147 @@ raster_backward_kernel(const float* __restrict__ points,
               const float d_mx = -(dpx * ax - dpy * ay);
               const float d_my = -(dpx * ay + dpy * ax);
               const float d_pdf = dl * pa;
-              v[0] = d_pdf * d_mx;
-              v[1] = d_pdf * d_my;
-              v[2] = d_pdf * (dpx * dx + dpy * dy);
-              v[3] = d_pdf * (dpx * dy - dpy * dx);
-              v[4] = d_pdf * (kTwoPi * t.iy
-                              * (t.s[0] - t.s[1] + (ds_ds[0] - ds_ds[1]) * sx));
-              v[5] = d_pdf * (kTwoPi * t.ix
-                              * (t.s[2] - t.s[3] + (ds_ds[2] - ds_ds[3]) * sy));
-              v[6] = dl * t.pdf;
+              v[0] += d_pdf * d_mx;
+              v[1] += d_pdf * d_my;
+              v[2] += d_pdf * (dpx * dx + dpy * dy);
+              v[3] += d_pdf * (dpx * dy - dpy * dx);
+              v[4] += d_pdf * (kTwoPi * t.iy
+                               * (t.s[0] - t.s[1] + (ds_ds[0] - ds_ds[1]) * sx));
+              v[5] += d_pdf * (kTwoPi * t.ix
+                               * (t.s[2] - t.s[3] + (ds_ds[2] - ds_ds[3]) * sy));
+              v[6] += dl * t.pdf;
               if (kHeuristic) {
-                v[kAux0] = d_pdf * d_pdf;
-                v[kAux0 + 1] = fabsf(d_pdf * d_mx) + fabsf(d_pdf * d_my);
+                v[kHeur] += d_pdf * d_pdf;
+                v[kHeur + 1] += fabsf(d_pdf * d_mx) + fabsf(d_pdf * d_my);
               }
             } else {
-              const float qa = s_pt[2 * batch + j], qb = s_pt[3 * batch + j];
-              const float qc = s_pt[4 * batch + j];
+              const float qa = p.r[2], qb = p.r[3], qc = p.r[4];
               // log a = log pa - d^T Q d / 2 with d = pixel - mean
               const float B = dl * a_raw;
               const float qx = qa * dx + qb * dy, qy = qb * dx + qc * dy;
-              v[0] = B * qx;
-              v[1] = B * qy;
-              v[2] = -0.5f * B * dx * dx;
-              v[3] = -B * dx * dy;
-              v[4] = -0.5f * B * dy * dy;
-              v[5] = B;
+              v[0] += B * qx;
+              v[1] += B * qy;
+              v[2] += -0.5f * B * dx * dx;
+              v[3] += -B * dx * dy;
+              v[4] += -0.5f * B * dy * dy;
+              v[5] += B;
+              // the per-point pa^2 factor of the prune cost is applied
+              // after the reduction (function.py)
               if (kHeuristic) {
-                // the per-point pa^2 factor of the prune cost is applied
-                // after the reduction (function.py)
-                v[kAux0] = dl * dl;
-                v[kAux0 + 1] = fabsf(B * qx) + fabsf(B * qy);
+                v[kHeur] += dl * dl;
+                v[kHeur + 1] += fabsf(B * qx) + fabsf(B * qy);
               }
             }
-            if (kVisibility) v[kFeat0 - 1] = w;
+            // the visibility row in the shared sum order (raster_common.cuh)
+            v[kVis] = __fadd_rn(v[kVis], w);
 #pragma unroll
-            for (int f = 0; f < kMaxFeatures; ++f) {
-              if (f < num_features) v[kFeat0 + f] = g[f] * w;
-            }
-            T = transmit(T, a);
-            if (stopped(T, saturate_threshold)) done = true;
+            for (int f = 0; f < kCap; ++f) v[kFeat + f] += g[k][f] * w;
+            T[k] = transmit(T[k], a);
+            if (stopped(T[k], saturate_threshold)) done |= 1u << k;
           }
         }
 
-        // this warp's partial of every row, in a fixed shuffle order
-        float* part = s_part + warp * kSub + jj;
-        if (__any_sync(kFullMask, active)) {
-#pragma unroll
-          for (int r = 0; r < kMaxRows; ++r) {
-            if (r < rows) {
-              const float x = warp_sum(v[r]);
-              if (lane == 0) part[r * n_warps * kSub] = x;
-            }
-          }
-        } else if (lane == 0) {
-          for (int r = 0; r < rows; ++r) part[r * n_warps * kSub] = 0.0f;
+        // this warp's partial of every row, one shared store
+        float* part = s_part + warp * kRows * part_stride + j;
+        const int row = transposed_row<kRows>(lane);
+        if (__any_sync(kFullMask, any)) {
+          const float x = transpose_reduce<kRows>(v, lane);
+          if (kRows == 32 || !(lane & 1)) part[row * part_stride] = x;
+        } else if (kRows == 32 || !(lane & 1)) {
+          part[row * part_stride] = 0.0f;
         }
       }
 
-      // the block's sums of these n_sub slots, warps added in order
-      alive = __syncthreads_count(!done);
-      for (int i = tid; i < rows * n_sub; i += batch) {
-        const int r = i / n_sub, jj = i - r * n_sub;
-        const float* part = s_part + r * n_warps * kSub + jj;
-        float sum = 0.0f;
-        for (int w = 0; w < n_warps; ++w) sum += part[w * kSub];
-        out[r * k_stride + base + sub + jj] = sum;
+      // the block's sums of the batch's slots, warps added in order
+      const int alive = __syncthreads_count(done != kAllDone);
+      for (int r = 0; r < rows; ++r) {
+        const float* part = s_part + s_rowmap[r] * part_stride;
+        for (int j = tid; j < count; j += threads) {
+          out[r * k_stride + base + j] =
+              block_slot_sum(part + j, n_warps, kRows * part_stride);
+        }
       }
-      __syncthreads();
+      // slots past the point where every pixel stopped keep their zeros
+      if (!alive) break;
     }
-    // slots past the point where every pixel stopped keep their zeros
-    if (!alive) break;
   }
 }
 
-template <int kMaxThreads, bool kAntialias, bool kHeuristic, bool kVisibility>
+size_t shared_bytes(int threads, int num_features, int rows, int batch) {
+  return sizeof(float)
+      * (static_cast<size_t>(batch) * (kStageStride + 2 + num_features)
+         + static_cast<size_t>(threads / 32) * rows * (batch + 1));
+}
+
+template <bool kAntialias, bool kHeuristic, int kCap, int kPPT>
 cudaError_t launch(const float* points, const float* features,
                    const int* overlap_to_point, const int* tile_ranges,
+                   const int* tile_order, int* tile_counter,
                    const float* image, const float* weight,
                    const float* grad_image, const float* grad_weight,
                    int num_tiles, int tiles_x, int tile_size, int width,
                    int height, int num_features, float alpha_threshold,
                    float clamp_max_alpha, float saturate_threshold,
-                   long long k_stride, float* out, cudaStream_t stream) {
-  auto kernel =
-      raster_backward_kernel<kMaxThreads, kAntialias, kHeuristic, kVisibility>;
-  const int threads = tile_size * tile_size;
-  const int rows = point_rows(kAntialias) + (kHeuristic ? 2 : 0)
-      + (kVisibility ? 1 : 0) + num_features;
-  const size_t smem = sizeof(float)
-      * (static_cast<size_t>(threads) * (kPointRows + num_features)
-         + static_cast<size_t>(rows) * (threads / 32) * kSub);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<num_tiles, threads, smem, stream>>>(
-      points, features, overlap_to_point, tile_ranges, image, weight,
-      grad_image, grad_weight, tiles_x, tile_size, width, height, num_features,
-      alpha_threshold, clamp_max_alpha, saturate_threshold, k_stride, out);
+                   int visibility, long long k_stride,
+                   float* out, cudaStream_t stream) {
+  auto kernel = raster_backward_kernel<kAntialias, kHeuristic, kCap, kPPT>;
+  const int threads = block_threads(tile_size, kPPT);
+  const size_t smem = shared_bytes(threads, num_features, padded_rows(kCap),
+                                   batch_slots(kCap));
+  int blocks = 0;
+  const cudaError_t err = persistent_blocks(kernel, threads, smem, num_tiles,
+                                            tile_counter, stream, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, smem, stream>>>(
+      points, features, overlap_to_point, tile_ranges, tile_order, tile_counter,
+      image, weight, grad_image, grad_weight, num_tiles, tiles_x, tile_size,
+      width, height, num_features, alpha_threshold, clamp_max_alpha,
+      saturate_threshold, visibility, k_stride, out);
   return cudaGetLastError();
 }
 
 using LaunchFn = cudaError_t (*)(const float*, const float*, const int*,
-                                 const int*, const float*, const float*,
-                                 const float*, const float*, int, int, int, int,
-                                 int, int, float, float, float, long long,
-                                 float*, cudaStream_t);
+                                 const int*, const int*, int*, const float*,
+                                 const float*, const float*, const float*, int,
+                                 int, int, int, int, int, float, float, float,
+                                 int, long long, float*, cudaStream_t);
 
-// the template instances, indexed by large * 8 + antialias * 4
-// + heuristic * 2 + visibility
-constexpr LaunchFn kLaunch[16] = {
-    launch<256, false, false, false>,  launch<256, false, false, true>,
-    launch<256, false, true, false>,   launch<256, false, true, true>,
-    launch<256, true, false, false>,   launch<256, true, false, true>,
-    launch<256, true, true, false>,    launch<256, true, true, true>,
-    launch<1024, false, false, false>, launch<1024, false, false, true>,
-    launch<1024, false, true, false>,  launch<1024, false, true, true>,
-    launch<1024, true, false, false>,  launch<1024, true, false, true>,
-    launch<1024, true, true, false>,   launch<1024, true, true, true>};
+// the template instances, indexed by (antialias * 2 + heuristic) * 3 +
+// layout, layout 0: F <= 4 and 4 pixels a thread, 1: F <= 4 and 2, 2:
+// F <= 16 and 2
+#define TGR_LAYOUTS(AA, HEUR)                                       \
+  launch<AA, HEUR, kSmallFeatures, 4>,                              \
+      launch<AA, HEUR, kSmallFeatures, 2>,                          \
+      launch<AA, HEUR, kMaxFeatures, 2>
+constexpr LaunchFn kLaunch[12] = {
+    TGR_LAYOUTS(false, false), TGR_LAYOUTS(false, true),
+    TGR_LAYOUTS(true, false),  TGR_LAYOUTS(true, true)};
+#undef TGR_LAYOUTS
 
 }  // namespace
 
 extern "C" int tgr_raster_backward(
     const float* points, const float* features, const int* overlap_to_point,
-    const int* tile_ranges, const float* image, const float* weight,
-    const float* grad_image, const float* grad_weight, int num_tiles,
-    int tiles_x, int tile_size, int width, int height, int num_features,
-    float alpha_threshold, float clamp_max_alpha, float saturate_threshold,
-    int antialias, int heuristic, int visibility, long long k_stride,
-    float* out, void* stream) {
+    const int* tile_ranges, const int* tile_order, int* tile_counter,
+    const float* image, const float* weight, const float* grad_image,
+    const float* grad_weight, int num_tiles, int tiles_x, int tile_size,
+    int width, int height, int num_features, float alpha_threshold,
+    float clamp_max_alpha, float saturate_threshold, int antialias,
+    int heuristic, int visibility, long long k_stride, float* out,
+    void* stream) {
   if (num_features < 1 || num_features > kMaxFeatures) return cudaErrorInvalidValue;
-  const int threads = tile_size * tile_size;
   // whole warps only: every lane takes part in the row shuffles
-  if (tile_size < 1 || threads > 1024 || threads % 32 != 0) return cudaErrorInvalidValue;
+  if (tile_size < 1 || tile_size * tile_size > 1024
+      || (tile_size * tile_size) % 32 != 0) {
+    return cudaErrorInvalidValue;
+  }
   if (num_tiles == 0) return cudaSuccess;
-  const int which = (threads > 256 ? 8 : 0) + (antialias ? 4 : 0)
-      + (heuristic ? 2 : 0) + (visibility ? 1 : 0);
-  return kLaunch[which](points, features, overlap_to_point, tile_ranges, image,
-                        weight, grad_image, grad_weight, num_tiles, tiles_x,
-                        tile_size, width, height, num_features, alpha_threshold,
-                        clamp_max_alpha, saturate_threshold, k_stride, out,
-                        static_cast<cudaStream_t>(stream));
+  const int ppt = pixels_per_thread(tile_size, num_features);
+  const int layout = num_features > kSmallFeatures ? 2 : (ppt == 4 ? 0 : 1);
+  return kLaunch[((antialias ? 2 : 0) + (heuristic ? 1 : 0)) * 3 + layout](
+      points, features, overlap_to_point, tile_ranges, tile_order, tile_counter,
+      image, weight, grad_image, grad_weight, num_tiles, tiles_x, tile_size,
+      width, height, num_features, alpha_threshold, clamp_max_alpha,
+      saturate_threshold, visibility, k_stride, out,
+      static_cast<cudaStream_t>(stream));
 }

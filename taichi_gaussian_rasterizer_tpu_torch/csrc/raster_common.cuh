@@ -10,47 +10,181 @@
 // nearest intrinsics (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn), which
 // the compiler never contracts into fused multiply-adds or reorders. Both
 // kernels inline the same instruction sequence whatever code surrounds it.
+//
+// Both kernels also share the block layout (several pixels a thread), the
+// threshold box that lets a thread skip a slot, the order in which a
+// slot's values are summed over a tile's pixels (so the forward's
+// visibility equals the backward's visibility row bit for bit) and the
+// persistent tile queue.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace tgr {
 
 constexpr int kMaxFeatures = 16;
 constexpr int kPointRows = 7;   // staged floats per point (see stage_point)
+constexpr int kStageStride = 8; // floats a staged point takes: two 16-byte loads
 constexpr float kLogAlphaFloor = -1e4f;
 constexpr float kTwoPi = 6.283185307179586f;
 
 __device__ __forceinline__ float one_minus(float x) { return __fsub_rn(1.0f, x); }
 
-// Stage point p (packed mean, axis, sigma, alpha) as column `col` of the
-// kPointRows x batch shared buffer, in the tile-local frame (ox, oy).
-// Antialias keeps the packed form; the conic form stores
-// (mean, qa, qb, qc, log alpha) with Q = R diag(sx, sy)^-2 R^T, so that
-// u^2 + v^2 = d^T Q d. Row 6 holds the point alpha in both forms.
+// Stage point p (packed mean, axis, sigma, alpha) as the kPointRows
+// floats at dst (one 32-byte column of the staged batch, see load_staged),
+// in the tile-local frame (ox, oy). Antialias keeps the packed form; the
+// conic form stores (mean, qa, qb, qc, log alpha) with
+// Q = R diag(sx, sy)^-2 R^T, so that u^2 + v^2 = d^T Q d. Row 6 holds the
+// point alpha in both forms.
 template <bool kAntialias>
 __device__ __forceinline__ void stage_point(const float* __restrict__ p,
-                                            float ox, float oy, float* s_pt,
-                                            int batch, int col) {
+                                            float ox, float oy, float* dst) {
   const float ax = p[2], ay = p[3], sx = p[4], sy = p[5], pa = p[6];
-  s_pt[0 * batch + col] = __fsub_rn(p[0], ox);
-  s_pt[1 * batch + col] = __fsub_rn(p[1], oy);
+  dst[0] = __fsub_rn(p[0], ox);
+  dst[1] = __fsub_rn(p[1], oy);
   if (kAntialias) {
-    s_pt[2 * batch + col] = ax;
-    s_pt[3 * batch + col] = ay;
-    s_pt[4 * batch + col] = sx;
-    s_pt[5 * batch + col] = sy;
+    dst[2] = ax;
+    dst[3] = ay;
+    dst[4] = sx;
+    dst[5] = sy;
   } else {
     const float isx2 = __fdiv_rn(1.0f, __fmul_rn(sx, sx));
     const float isy2 = __fdiv_rn(1.0f, __fmul_rn(sy, sy));
     const float axx = __fmul_rn(ax, ax), ayy = __fmul_rn(ay, ay);
-    s_pt[2 * batch + col] = __fadd_rn(__fmul_rn(axx, isx2), __fmul_rn(ayy, isy2));
-    s_pt[3 * batch + col] = __fmul_rn(__fmul_rn(ax, ay), __fsub_rn(isx2, isy2));
-    s_pt[4 * batch + col] = __fadd_rn(__fmul_rn(ayy, isx2), __fmul_rn(axx, isy2));
-    s_pt[5 * batch + col] = fmaxf(logf(fmaxf(pa, 0.0f)), kLogAlphaFloor);
+    dst[2] = __fadd_rn(__fmul_rn(axx, isx2), __fmul_rn(ayy, isy2));
+    dst[3] = __fmul_rn(__fmul_rn(ax, ay), __fsub_rn(isx2, isy2));
+    dst[4] = __fadd_rn(__fmul_rn(ayy, isx2), __fmul_rn(axx, isy2));
+    dst[5] = fmaxf(logf(fmaxf(pa, 0.0f)), kLogAlphaFloor);
   }
-  s_pt[6 * batch + col] = pa;
+  dst[6] = pa;
+}
+
+// ---- the threshold box ---------------------------------------------------
+//
+// Half-extents (hx, hy) around a point's mean outside which no pixel's
+// pre-gate alpha exceeds the threshold, so the kernels skip those (pixel,
+// slot) pairs, whose gated alpha is 0: skipping them changes no value. A
+// negative extent culls every pixel (the point's peak alpha is below the
+// threshold); an infinite or NaN one culls none. ops/raster/bounds.py
+// mirrors these formulas (threshold_extent) and holds them against the
+// plain pdf; a card test holds the kernels bitwise against builds without
+// the box.
+
+// Conic pdf. log_alpha is the staged log alpha. The box holds the ellipse
+// d^T Q d <= c, c = 2 (log alpha - log threshold + 1e-3) widened for the
+// float rounding of Q and of the quadratic form, which grows with the
+// conditioning kappa = (s_max / s_min)^2 (at most 32 eps kappa of the form,
+// so 1 + 8e-6 kappa covers it); past kappa = 1e5 the box is unbounded.
+__device__ __forceinline__ float2 conic_extent(const float* __restrict__ p,
+                                               float log_alpha,
+                                               float log_threshold) {
+  const float ax = p[2], ay = p[3], sx = p[4], sy = p[5];
+  const float ratio = fmaxf(sx, sy) / fminf(sx, sy);
+  const float kappa = ratio * ratio;
+  if (!(kappa <= 1e5f)) return make_float2(INFINITY, INFINITY);
+  const float c = 2.0f * (log_alpha - log_threshold + 1e-3f) * (1.01f + 8e-6f * kappa);
+  if (!(c > 0.0f)) return make_float2(-1.0f, -1.0f);
+  // (Q^-1)_xx and (Q^-1)_yy from the eigen form, free of cancellation
+  const float sxx = sx * sx, syy = sy * sy, norm = ax * ax + ay * ay;
+  return make_float2(
+      1.001f * sqrtf(c * (ax * ax * sxx + ay * ay * syy)) / norm + 0.01f,
+      1.001f * sqrtf(c * (ay * ay * sxx + ax * ax * syy)) / norm + 0.01f);
+}
+
+// Antialiased pdf: alpha = pa 2 pi ix iy, ix = sx (S(a) - S(b)) with a, b
+// = (tu +- 1/2) / sx, iy the same in tv and sy, S(z) = sigmoid(g(z)) and
+// g(z) = 1.6 z + 0.07 z^3 (approx_cdf). S rises at most 0.4 per unit of z
+// (at z = 0), so ix <= min(sx, 0.4); for |tu| > 1/2 the tail gives ix <=
+// sx exp(-g((|tu| - 1/2) / sx)). Each bound gains kCdfSlack sx for the
+// rounding of S - S near 1, and a log margin of 1e-3 covers the rounding
+// of the products and of g. So |tu| > eu = 1/2 + sx z, with g(z) = -log(
+// threshold e^-1e-3 / (2 pi pa sx iy_max) - slack), leaves alpha below the
+// threshold (the same for tv), and the box is the bounding box of that
+// rectangle in (tu, tv), d = (ax tu - ay tv, ay tu + ax tv) / |axis|^2.
+constexpr float kCdfSlope = 0.404f;   // 0.4 and 1% for the rounding of a - b
+constexpr float kCdfSlack = 5e-7f;
+constexpr float kLogMargin = 1e-3f;
+
+// The least z >= 0 with g(z) >= L, rounded up: Newton steps from an upper
+// bound stay above the root of the convex, increasing g.
+__device__ __forceinline__ float cdf_tail_z(float L) {
+  if (!(L > 0.0f)) return 0.0f;
+  float z = fminf(L / 1.6f, cbrtf(L / 0.07f));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    z -= (z * (1.6f + 0.07f * z * z) - L) / (1.6f + 0.21f * z * z);
+  }
+  return 1.001f * z;
+}
+
+// Half-extent in tu (or tv) of sigma s; log_other = log(2 pi pa) plus the
+// log of the other direction's largest integral.
+__device__ __forceinline__ float antialias_half_extent(float s, float log_other,
+                                                       float log_threshold) {
+  const float r = expf(log_threshold - kLogMargin - log_other - logf(s)) - kCdfSlack;
+  if (!(r > 0.0f)) return INFINITY;
+  return 0.5f + s * cdf_tail_z(-logf(r));
+}
+
+__device__ __forceinline__ float2 antialias_extent(const float* __restrict__ p,
+                                                   float log_threshold) {
+  const float ax = p[2], ay = p[3], sx = p[4], sy = p[5], pa = p[6];
+  if (!(pa > 0.0f && sx > 0.0f && sy > 0.0f)) return make_float2(INFINITY, INFINITY);
+  const float log_ix = logf(fminf(sx, kCdfSlope) + kCdfSlack * sx);
+  const float log_iy = logf(fminf(sy, kCdfSlope) + kCdfSlack * sy);
+  const float log_peak = logf(kTwoPi * pa);
+  if (log_peak + log_ix + log_iy < log_threshold - kLogMargin) {
+    return make_float2(-1.0f, -1.0f);
+  }
+  const float eu = antialias_half_extent(sx, log_peak + log_iy, log_threshold);
+  const float ev = antialias_half_extent(sy, log_peak + log_ix, log_threshold);
+  const float norm = ax * ax + ay * ay;
+  return make_float2(1.001f * (fabsf(ax) * eu + fabsf(ay) * ev) / norm + 0.01f,
+                     1.001f * (fabsf(ay) * eu + fabsf(ax) * ev) / norm + 0.01f);
+}
+
+// p is the packed point row, staged its staged column (stage_point).
+template <bool kAntialias>
+__device__ __forceinline__ float2 threshold_extent(const float* __restrict__ p,
+                                                   const float* staged,
+                                                   float log_threshold) {
+  return kAntialias ? antialias_extent(p, log_threshold)
+                    : conic_extent(p, staged[5], log_threshold);
+}
+
+// True when the thread's pixels (column cx, rows ly0 .. ly0 + ppt - 1)
+// all lie outside staged point j's threshold box: the thread skips slot j.
+__device__ __forceinline__ bool outside_box(const float* s_pt, const float2* s_ext,
+                                            int j, float cx, int ly0, int ppt) {
+  const float2 m = *reinterpret_cast<const float2*>(s_pt + kStageStride * j);
+  const float2 e = s_ext[j];
+  const float ry = fmaxf(fmaxf((ly0 + 0.5f) - m.y, m.y - (ly0 + ppt - 0.5f)), 0.0f);
+  return fabsf(cx - m.x) > e.x || ry > e.y;
+}
+
+// Stage slots [base, base + count) of the tile's bin as columns 0..count-1
+// of s_pt ([batch][kStageStride]), s_feat ([num_features][batch]) and
+// s_ext ([batch] threshold boxes): each thread stages every blockDim.x-th
+// slot, its index and then its point and feature rows read from device
+// memory.
+template <bool kAntialias>
+__device__ __forceinline__ void stage_batch(
+    const float* __restrict__ points, const float* __restrict__ features,
+    const int* __restrict__ overlap_to_point, int base, int count,
+    int num_features, float ox, float oy, float log_threshold, float* s_pt,
+    float* s_feat, float2* s_ext, int batch) {
+  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    const int idx = overlap_to_point[base + j];
+    const float* p = points + static_cast<long long>(idx) * kPointRows;
+    float* col = s_pt + kStageStride * j;
+    stage_point<kAntialias>(p, ox, oy, col);
+    s_ext[j] = threshold_extent<kAntialias>(p, col, log_threshold);
+    const float* feat = features + static_cast<long long>(idx) * num_features;
+    for (int f = 0; f < num_features; ++f) s_feat[f * batch + j] = feat[f];
+  }
 }
 
 // Sigmoid approximation of the gaussian CDF, S(x) = sigmoid(z (1.6 +
@@ -72,17 +206,29 @@ struct AntialiasTerms {
   float ix, iy, pdf;
 };
 
+// One staged point in registers: column j of the staged batch, which
+// stage_point filled, read with two 16-byte shared loads once per slot and
+// shared by the pixels a thread owns.
+struct Staged {
+  float r[kStageStride];
+};
+
+__device__ __forceinline__ Staged load_staged(const float* s_pt, int j) {
+  const float4* col = reinterpret_cast<const float4*>(s_pt + kStageStride * j);
+  const float4 a = col[0], b = col[1];
+  return Staged{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+}
+
 // Pre-gate alpha (point alpha times pdf) of the pixel at tile-local
-// centre (cx, cy) and staged point j.
+// centre (cx, cy) and staged point p.
 template <bool kAntialias>
-__device__ __forceinline__ float alpha_raw(const float* s_pt, int batch, int j,
-                                           float cx, float cy,
+__device__ __forceinline__ float alpha_raw(const Staged& p, float cx, float cy,
                                            AntialiasTerms* t) {
-  const float dx = __fsub_rn(cx, s_pt[0 * batch + j]);
-  const float dy = __fsub_rn(cy, s_pt[1 * batch + j]);
+  const float dx = __fsub_rn(cx, p.r[0]);
+  const float dy = __fsub_rn(cy, p.r[1]);
   if (kAntialias) {
-    const float ax = s_pt[2 * batch + j], ay = s_pt[3 * batch + j];
-    const float sx = s_pt[4 * batch + j], sy = s_pt[5 * batch + j];
+    const float ax = p.r[2], ay = p.r[3];
+    const float sx = p.r[4], sy = p.r[5];
     t->tu = __fadd_rn(__fmul_rn(dx, ax), __fmul_rn(dy, ay));
     t->tv = __fsub_rn(__fmul_rn(dy, ax), __fmul_rn(dx, ay));
     t->s[0] = approx_cdf(__fadd_rn(t->tu, 0.5f), sx, &t->z[0]);
@@ -92,15 +238,14 @@ __device__ __forceinline__ float alpha_raw(const float* s_pt, int batch, int j,
     t->ix = __fmul_rn(sx, __fsub_rn(t->s[0], t->s[1]));
     t->iy = __fmul_rn(sy, __fsub_rn(t->s[2], t->s[3]));
     t->pdf = __fmul_rn(__fmul_rn(kTwoPi, t->ix), t->iy);
-    return __fmul_rn(s_pt[6 * batch + j], t->pdf);
+    return __fmul_rn(p.r[6], t->pdf);
   }
-  const float qa = s_pt[2 * batch + j], qb = s_pt[3 * batch + j];
-  const float qc = s_pt[4 * batch + j];
+  const float qa = p.r[2], qb = p.r[3], qc = p.r[4];
   const float quad = __fadd_rn(
       __fadd_rn(__fmul_rn(__fmul_rn(qa, dx), dx),
                 __fmul_rn(__fmul_rn(__fmul_rn(2.0f, qb), dx), dy)),
       __fmul_rn(__fmul_rn(qc, dy), dy));
-  return expf(__fsub_rn(s_pt[5 * batch + j], __fmul_rn(0.5f, quad)));
+  return expf(__fsub_rn(p.r[5], __fmul_rn(0.5f, quad)));
 }
 
 // Transmittance after a point of gated alpha a.
@@ -114,20 +259,158 @@ __device__ __forceinline__ bool stopped(float T, float stop) {
   return !(one_minus(T) < stop);
 }
 
-// Per-slot sums over a tile's pixels, without atomics: each warp sums a
-// slot's values over its 32 lanes with warp_sum, lane 0 keeps the partial
-// in shared memory for kSub slots at a time, and the block then adds the
-// warps' partials in warp order. The order is fixed, so two runs are
-// bitwise identical, and the forward's visibility and the backward's
-// visibility row, summed the same way, agree bit for bit.
-constexpr int kSub = 32;              // slots whose per-warp partials are held
+// ---- the block's layout: several pixels a thread ------------------------
+//
+// A block of ts * ceil(ts / ppt) threads covers a ts x ts tile; thread t
+// owns the ppt pixels of column t % ts in rows (t / ts) * ppt + k, k < ppt
+// (rows past the tile are masked). A warp thus covers a compact band of
+// the tile, and a thread loads each staged point once for its ppt pixels
+// and adds its pixels' values in registers before any cross-lane step.
+// Four pixels a thread where a warp stays whole and the feature registers
+// allow it, two otherwise: every tile of whole warps (ts a multiple of 8)
+// then gives whole warps. The forward and backward kernels take the same
+// layout for the same (tile size, F), which the per-slot sums below rely on.
+constexpr int kSmallFeatures = 4;   // feature registers of the F <= 4 instances
+
+__host__ __device__ constexpr int pixels_per_thread(int tile_size, int num_features) {
+  return num_features <= kSmallFeatures && (tile_size * tile_size) % 128 == 0 ? 4 : 2;
+}
+
+__host__ __device__ constexpr int block_threads(int tile_size, int ppt) {
+  return tile_size * ((tile_size + ppt - 1) / ppt);
+}
+
+// ---- per-slot sums over a tile's pixels, without atomics ---------------
+//
+// A slot's value is summed in one fixed order: over the thread's pixels in
+// k order, starting from 0 (a pixel that adds nothing is skipped, which is
+// the same as adding +0 for the non-negative visibility weights); then over
+// the warp's lanes by a butterfly of xor offsets 16, 8, 4, 2, 1; then over
+// the warps in warp order, starting from 0 (block_slot_sum). Two runs are
+// therefore bitwise identical, and the forward's visibility (warp_sum_xor,
+// one row) equals the backward's visibility row (transpose_reduce, all rows
+// at once) bit for bit: both add the same pairs at every level, and a
+// float add is commutative.
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Sum of x over the warp's 32 lanes, in lane 0. Every lane must call it.
-__device__ __forceinline__ float warp_sum(float x) {
+// Sum of x over the warp's 32 lanes, in every lane. Every lane must call it.
+__device__ __forceinline__ float warp_sum_xor(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFullMask, x, o);
+  for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(kFullMask, x, o));
   return x;
+}
+
+// The warp sums of kRows (16 or 32) rows at once. Each butterfly round
+// halves the rows a lane holds: the lane keeps one half, sends the other
+// to its partner and adds what it receives. kRows - 1 shuffles for 32
+// rows, 15 + 1 for 16 (instead of 5 a row). Returns the warp sum of row
+// transposed_row<kRows>(lane), which lanes lane and lane ^ 1 both hold
+// for 16 rows. Every lane must call it.
+template <int kRows, int kHalf>
+__device__ __forceinline__ void butterfly_rounds(float (&v)[kRows], int lane) {
+  if constexpr (kHalf >= 1) {
+    constexpr int kOffset = kRows == 32 ? kHalf : 2 * kHalf;
+    const bool upper = (lane & kOffset) != 0;
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const float send = upper ? v[i] : v[i + kHalf];
+      const float keep = upper ? v[i + kHalf] : v[i];
+      v[i] = __fadd_rn(keep, __shfl_xor_sync(kFullMask, send, kOffset));
+    }
+    butterfly_rounds<kRows, kHalf / 2>(v, lane);
+  }
+}
+
+template <int kRows>
+__device__ __forceinline__ float transpose_reduce(float (&v)[kRows], int lane) {
+  static_assert(kRows == 16 || kRows == 32, "16 or 32 rows");
+  // every index is a compile-time constant, so v stays in registers
+  butterfly_rounds<kRows, kRows / 2>(v, lane);
+  if (kRows == 16) v[0] = __fadd_rn(v[0], __shfl_xor_sync(kFullMask, v[0], 1));
+  return v[0];
+}
+
+template <int kRows>
+__device__ __forceinline__ int transposed_row(int lane) {
+  return kRows == 32 ? lane : lane >> 1;
+}
+
+// Sum over the block's warps of the partials part[w * stride], in warp
+// order.
+__device__ __forceinline__ float block_slot_sum(const float* part, int n_warps,
+                                                int stride) {
+  float s = 0.0f;
+  for (int w = 0; w < n_warps; ++w) s = __fadd_rn(s, part[w * stride]);
+  return s;
+}
+
+// ---- the persistent tile queue -----------------------------------------
+//
+// A launch runs as many blocks as fit on the card at once; each takes the
+// next tile from `tile_order` (longest bin first, computed by the wrapper)
+// through an atomic counter that the launch zeroes first. Which block runs
+// a tile changes no output, so two runs stay bitwise identical. Returns
+// the tile, or -1 once the queue is empty; uniform over the block.
+__device__ __forceinline__ int next_tile(int* tile_counter, const int* tile_order,
+                                         int num_tiles, int* s_slot) {
+  __syncthreads();   // every thread has read the previous tile's slot
+  if (threadIdx.x == 0) *s_slot = atomicAdd(tile_counter, 1);
+  __syncthreads();
+  const int q = *s_slot;
+  return q < num_tiles ? tile_order[q] : -1;
+}
+
+// The persistent grid of a launch: as many blocks of `kernel` as fit on the
+// device at once, at most num_tiles. Sets the dynamic shared memory the
+// kernel needs and zeroes the tile counter on the stream. The occupancy
+// query is made once per (kernel, block size, shared memory, device) and
+// cached: a launch costs little more host time than a plain one.
+template <typename Kernel>
+cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
+                              int num_tiles, int* tile_counter,
+                              cudaStream_t stream, int* blocks) {
+  struct Entry {
+    const void* fn;
+    int threads;
+    size_t smem;
+    int device;
+    int grid;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int cached = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int grid = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < cached; ++i) {
+      const Entry& e = cache[i];
+      if (e.fn == fn && e.threads == threads && e.smem == smem && e.device == device) {
+        grid = e.grid;
+      }
+    }
+  }
+  // set on every launch: a launch with less shared memory lowers it
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (grid == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    grid = per_sm * sms;
+    std::lock_guard<std::mutex> lock(mu);
+    if (cached < 64) cache[cached++] = Entry{fn, threads, smem, device, grid};
+  }
+  err = cudaMemsetAsync(tile_counter, 0, sizeof(int), stream);
+  *blocks = num_tiles < grid ? num_tiles : grid;
+  return err;
 }
 
 }  // namespace tgr

@@ -12,36 +12,53 @@
 // bf16 feature pairs, no coefficient matmul for the alpha field and no
 // triangular-matmul cumprod. Each pixel runs the sequential blend loop.
 //
-// What bounds it on an H100: the work is one pdf (an expf, or four sigmoids
-// under antialias) plus F+1 FMAs per (pixel, overlapping point) pair, some
-// twenty FP32 operations, and every pair of a pixel depends on the one
-// before through T. Device-memory traffic is small: each overlap's index, 7
-// point floats and F features are read once per tile. At 1M gaussians
-// @2048x1536 (2.7M overlaps, ~0.7G pairs) it takes 1.56 ms on an H100 80GB
-// HBM3 at 700 W, about a tenth of the card's FP32 rate by that count, so
-// neither the arithmetic rate nor memory bounds it; the likely bound (not
-// measured) is the latency of the dependent per-pixel loop at the
-// occupancy its 53-61 registers a thread allow, and the longest bins.
-// Design: one thread block per tile, one thread per pixel; the block stages
-// a batch of blockDim points into shared memory (one global read per point
-// per tile, then broadcast reads by every pixel); a pixel stops once its
-// saturation gate has closed, and the block stops once every pixel has
-// (__syncthreads_count) -- exact, because the gate never reopens. The pdf,
-// gate and transmittance arithmetic lives in raster_common.cuh, shared with
-// the backward kernel, whose replay must stop exactly where this pass did.
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3 at 700 W, measured with
+// tools/time_raster_kernels.py): at 1M gaussians @2048x1536 (2.70M slots)
+// the function needs the pdf and the blend of the 86.7M (pixel, slot) pairs
+// whose alpha passes the threshold: 2.60 GFLOP and 101 MB, a bound of
+// 0.039 ms on FP32 operations (ops/raster/bounds.py). The kernel takes 0.65
+// ms, 6.0% of the bound (1.71 ms in the one-pixel-a-thread design before
+// it); with visibility 1.18 ms, 3.4% (2.36 before). Of the 691M pairs
+// before the pixels stop, 119M lie inside their points' threshold boxes;
+// without the box test (--ablate threshold_box) the kernel takes 1.10 ms.
+// Without the slot loop (--ablate forward_slot_masks) it still takes 0.18
+// ms: staging, the tile queue and the image writes, latency that the
+// blocks resident on an SM hide only in part. The slot loop takes the rest,
+// about 0.47 ms for what the bound counts at 0.039: lanes whose pixels a
+// slot's box misses idle while their warp blends it, and each slot costs
+// shared loads, an expf and the gates; which of these dominates needs a
+// profiler's stall counters (ncu) and is not measured.
 //
-// The visibility instances (kVisibility) sum each slot's weights with the
-// backward's per-warp shuffle and fixed-order sum over the warps
-// (raster_common.cuh), so the result is deterministic and equals the
+// Design: a persistent grid takes tiles longest bin first from the tile
+// queue (raster_common.cuh). A block stages a batch of 256 slots in shared
+// memory (one global read per point per tile, then broadcast reads), with
+// each point's threshold box. Without visibility each thread owns two
+// pixels of a column (one under the antialiased pdf, where that measured
+// faster on a saturating frame): it scans 32 slots at a time against the
+// boxes into a bit mask and blends only the slots whose box reaches its
+// pixels, so a warp runs as many slots as its busiest lane needs rather
+// than every slot some lane needs, and it leaves once its pixels have
+// stopped. A pixel stops once its saturation gate has closed, and the block
+// once every pixel has (__syncthreads_count) -- exact, because the gate
+// never reopens. The pdf, gate and transmittance arithmetic lives in
+// raster_common.cuh, shared with the backward kernel, whose replay must
+// stop exactly where this pass did.
+//
+// The visibility instances (kVisibility) take the backward's layout (four
+// pixels a thread where it can) and sum each slot's weights over the
+// thread's pixels, the warp's lanes and the block's warps in the order
+// raster_common.cuh fixes, so the result is deterministic and equals the
 // backward's visibility row bit for bit. A full-mask shuffle needs every
-// lane, so there a pixel never leaves the slot loop: a stopped or outside
-// pixel contributes 0. Slots the block never reaches (after its early exit,
-// past the real overlaps) keep the zeros the caller filled in. The other
-// instances keep the early `continue`/`break` per pixel and pay nothing.
+// lane, so every lane runs every slot (a stopped pixel, or one outside the
+// slot's box, adds 0) until the warp's pixels have all stopped; its
+// partials of the batch's remaining slots are then zeros. Slots the block
+// never reaches (after its early exit, past the real overlaps) keep the
+// zeros the caller filled in.
 //
 // C interface (bound with ctypes; pointers are device pointers):
 //   int tgr_raster_forward(points (N,7) f32, features (N,F) f32,
 //                          overlap_to_point (K,) i32, tile_ranges (T,2) i32,
+//                          tile_order (T,) i32, tile_counter (1,) i32 scratch,
 //                          num_tiles, tiles_x, tile_size, width, height, F,
 //                          alpha_threshold, clamp_max_alpha,
 //                          saturate_threshold, antialias, blending,
@@ -57,202 +74,260 @@ using namespace tgr;
 
 namespace {
 
-// One point j of the staged batch for this pixel: gates, weight, feature
-// accumulation and the transmittance update. Returns the point's weight
-// (0 when its alpha is under the threshold) and sets `done` once the
-// pixel's gate has closed.
-template <bool kAntialias, bool kBlending>
-__device__ __forceinline__ float blend_point(
-    const float* s_pt, const float* s_feat, int batch, int j, float cx,
-    float cy, int num_features, float alpha_threshold, float clamp_max_alpha,
-    float saturate_threshold, float* acc, float& alpha_acc, float& T,
-    bool& done) {
-  // quantile mode emits the point whose accumulated weight crosses c
-  const float c = 1.0f - saturate_threshold;
-  AntialiasTerms terms;
-  const float a_raw = alpha_raw<kAntialias>(s_pt, batch, j, cx, cy, &terms);
-  // below the threshold the gated alpha is 0: no weight, T unchanged
-  if (!(a_raw > alpha_threshold)) return 0.0f;
-  const float a = fminf(a_raw, clamp_max_alpha);
-  const float total_before = one_minus(T);
-  float w;
-  if (kBlending) {
-    w = total_before < saturate_threshold ? __fmul_rn(a, T) : 0.0f;
-    alpha_acc += w;
-  } else {
-    const float total_after = one_minus(transmit(T, a));
-    w = (total_before < c && total_after >= c) ? 1.0f : 0.0f;
-    alpha_acc += a * T;
-  }
-#pragma unroll
-  for (int f = 0; f < kMaxFeatures; ++f) {
-    if (f < num_features) acc[f] += w * s_feat[f * batch + j];
-  }
-  T = transmit(T, a);
-  // T never grows, so once the gate is closed it stays closed
-  if (stopped(T, kBlending ? saturate_threshold : c)) done = true;
-  return w;
-}
+constexpr int kBatch = 256;   // slots staged at a time
 
-template <bool kAntialias, bool kBlending, bool kVisibility>
-__global__ void __launch_bounds__(1024)
+template <bool kAntialias, bool kBlending, bool kVisibility, int kCap, int kPPT>
+__global__ void __launch_bounds__(kPPT == 4 ? 256 : 512)
 raster_forward_kernel(const float* __restrict__ points,
                       const float* __restrict__ features,
                       const int* __restrict__ overlap_to_point,
                       const int* __restrict__ tile_ranges,
+                      const int* __restrict__ tile_order,
+                      int* __restrict__ tile_counter, int num_tiles,
                       int tiles_x, int tile_size, int width, int height,
                       int num_features, float alpha_threshold,
                       float clamp_max_alpha, float saturate_threshold,
-                      float* __restrict__ image, float* __restrict__ weight,
+                      float* __restrict__ image,
+                      float* __restrict__ weight,
                       float* __restrict__ visibility) {
+  constexpr unsigned kAllDone = (1u << kPPT) - 1;
   extern __shared__ float smem[];
-  const int batch = blockDim.x;
-  float* s_pt = smem;                           // [kPointRows][batch]
-  float* s_feat = smem + kPointRows * batch;    // [num_features][batch]
-  float* s_part = s_feat + num_features * batch;  // [n_warps][kSub] (kVisibility)
+  __shared__ int s_slot;
+  const int threads = blockDim.x;
+  float* s_pt = smem;                             // [kBatch][kStageStride]
+  float2* s_ext = reinterpret_cast<float2*>(s_pt + kStageStride * kBatch);  // [kBatch]
+  float* s_feat = reinterpret_cast<float*>(s_ext + kBatch);  // [F][kBatch]
+  float* s_part = s_feat + num_features * kBatch;  // [n_warps][kBatch] (kVisibility)
 
-  const int tile = blockIdx.x;
   const int tid = threadIdx.x;
-  const int tx = tile % tiles_x, ty = tile / tiles_x;
-  const int lx = tid % tile_size, ly = tid / tile_size;
-  const int px = tx * tile_size + lx, py = ty * tile_size + ly;
-  const bool inside = px < width && py < height;
-  const float ox = static_cast<float>(tx * tile_size);
-  const float oy = static_cast<float>(ty * tile_size);
+  const int lx = tid % tile_size, ly0 = (tid / tile_size) * kPPT;
   // tile-local pixel centre (the JAX kernels' frame)
-  const float cx = lx + 0.5f, cy = ly + 0.5f;
+  const float cx = lx + 0.5f;
+  const float log_threshold = logf(alpha_threshold);
+  // quantile mode emits the point whose accumulated weight crosses c
+  const float c = 1.0f - saturate_threshold;
+  const float stop = kBlending ? saturate_threshold : c;
 
-  const int start = tile_ranges[2 * tile];
-  const int end = tile_ranges[2 * tile + 1];
+  for (;;) {
+    const int tile = next_tile(tile_counter, tile_order, num_tiles, &s_slot);
+    if (tile < 0) break;
+    const int tx = tile % tiles_x, ty = tile / tiles_x;
+    const float ox = static_cast<float>(tx * tile_size);
+    const float oy = static_cast<float>(ty * tile_size);
+    const int start = tile_ranges[2 * tile];
+    const int end = tile_ranges[2 * tile + 1];
 
-  float T = 1.0f;
-  float acc[kMaxFeatures];
+    float T[kPPT], acc[kPPT][kCap];
+    float alpha_acc[kPPT];  // sum of weights, or sum of a * T in quantile mode
+    unsigned done = 0;
 #pragma unroll
-  for (int f = 0; f < kMaxFeatures; ++f) acc[f] = 0.0f;
-  float alpha_acc = 0.0f;  // sum of weights, or sum of a * T in quantile mode
-  bool done = !inside;
-
-  for (int base = start; base < end; base += batch) {
-    // also the barrier before the batch buffer is overwritten
-    if (__syncthreads_count(!done) == 0) break;
-    const int count = min(batch, end - base);   // the last batch is short
-
-    if (tid < count) {
-      const int idx = overlap_to_point[base + tid];
-      stage_point<kAntialias>(points + static_cast<long long>(idx) * 7, ox, oy,
-                              s_pt, batch, tid);
-      const float* feat = features + static_cast<long long>(idx) * num_features;
-      for (int f = 0; f < num_features; ++f) s_feat[f * batch + tid] = feat[f];
-    }
-    __syncthreads();
-
-    if (!kVisibility) {
-      if (done) continue;
-      for (int j = 0; j < count; ++j) {
-        blend_point<kAntialias, kBlending>(
-            s_pt, s_feat, batch, j, cx, cy, num_features, alpha_threshold,
-            clamp_max_alpha, saturate_threshold, acc, alpha_acc, T, done);
-        if (done) break;
+    for (int k = 0; k < kPPT; ++k) {
+      T[k] = 1.0f;
+      alpha_acc[k] = 0.0f;
+#pragma unroll
+      for (int f = 0; f < kCap; ++f) acc[k][f] = 0.0f;
+      const int ly = ly0 + k;
+      if (ly >= tile_size || tx * tile_size + lx >= width
+          || ty * tile_size + ly >= height) {
+        done |= 1u << k;
       }
-    } else {
-      const int n_warps = batch / 32;
-      const int warp = tid / 32, lane = tid % 32;
-      int alive = 1;
-      for (int sub = 0; sub < count && alive; sub += kSub) {
-        const int n_sub = min(kSub, count - sub);
-        // warp-uniform: every lane runs every slot, a done pixel adds 0
-        for (int jj = 0; jj < n_sub; ++jj) {
-          float w = 0.0f;
-          if (!done) {
-            w = blend_point<kAntialias, kBlending>(
-                s_pt, s_feat, batch, sub + jj, cx, cy, num_features,
-                alpha_threshold, clamp_max_alpha, saturate_threshold, acc,
-                alpha_acc, T, done);
+    }
+
+    for (int base = start; base < end; base += kBatch) {
+      const int count = min(kBatch, end - base);   // the last batch is short
+      stage_batch<kAntialias>(points, features, overlap_to_point, base, count,
+                              num_features, ox, oy, log_threshold, s_pt,
+                              s_feat, s_ext, kBatch);
+      __syncthreads();
+
+      // One slot for the thread's pixels: the pre-gate alphas first, as
+      // independent chains, then the gates, weights and T of the pixels
+      // whose alpha passes the threshold. Returns the sum of their weights.
+      auto blend_slot = [&](int j) {
+        float vis = 0.0f;
+        const Staged p = load_staged(s_pt, j);
+        float a_raws[kPPT];
+#pragma unroll
+        for (int k = 0; k < kPPT; ++k) {
+          AntialiasTerms unused;
+          a_raws[k] = alpha_raw<kAntialias>(p, cx, (ly0 + k) + 0.5f, &unused);
+        }
+        float feat[kCap];
+        bool loaded = false;
+#pragma unroll
+        for (int k = 0; k < kPPT; ++k) {
+          // below the threshold the gated alpha is 0: no weight, T unchanged
+          const float a_raw = a_raws[k];
+          if ((done & (1u << k)) || !(a_raw > alpha_threshold)) continue;
+          if (!loaded) {
+#pragma unroll
+            for (int f = 0; f < kCap; ++f) {
+              feat[f] = f < num_features ? s_feat[f * kBatch + j] : 0.0f;
+            }
+            loaded = true;
           }
-          const float x = warp_sum(w);
-          if (lane == 0) s_part[warp * kSub + jj] = x;
+          const float a = fminf(a_raw, clamp_max_alpha);
+          const float total_before = one_minus(T[k]);
+          float w;
+          if (kBlending) {
+            w = total_before < saturate_threshold ? __fmul_rn(a, T[k]) : 0.0f;
+            alpha_acc[k] += w;
+          } else {
+            const float total_after = one_minus(transmit(T[k], a));
+            w = (total_before < c && total_after >= c) ? 1.0f : 0.0f;
+            alpha_acc[k] += a * T[k];
+          }
+#pragma unroll
+          for (int f = 0; f < kCap; ++f) acc[k][f] += w * feat[f];
+          // the visibility sum in the shared order (raster_common.cuh)
+          vis = __fadd_rn(vis, w);
+          T[k] = transmit(T[k], a);
+          // T never grows, so once the gate is closed it stays closed
+          if (stopped(T[k], stop)) done |= 1u << k;
         }
-        // the block's sums of these n_sub slots, warps added in order
-        alive = __syncthreads_count(!done);
-        for (int jj = tid; jj < n_sub; jj += batch) {
-          float sum = 0.0f;
-          for (int k = 0; k < n_warps; ++k) sum += s_part[k * kSub + jj];
-          visibility[base + sub + jj] = sum;
+        return vis;
+      };
+
+      if (!kVisibility) {
+        // Each thread runs only the slots whose threshold box reaches its
+        // pixels, 32 slots at a time from a bit mask, and leaves once its
+        // pixels have stopped: a warp runs as many slots as its busiest
+        // lane needs, not every slot some lane needs.
+        for (int c0 = 0; c0 < count && done != kAllDone; c0 += 32) {
+          const int n = min(32, count - c0);
+          unsigned todo = 0;
+          for (int i = 0; i < n; ++i) {
+            if (!outside_box(s_pt, s_ext, c0 + i, cx, ly0, kPPT)) todo |= 1u << i;
+          }
+          while (todo != 0 && done != kAllDone) {
+            blend_slot(c0 + __ffs(todo) - 1);
+            todo &= todo - 1;
+          }
         }
-        __syncthreads();
+      } else {
+        // every lane runs every slot for the warp's sums (a done pixel, or
+        // one outside the slot's threshold box, adds 0) until the warp's
+        // pixels have all stopped; its partials of the remaining slots are
+        // then zeros
+        float* part = s_part + (tid / 32) * kBatch;
+        for (int j = 0; j < count; ++j) {
+          if (__all_sync(kFullMask, done == kAllDone)) {
+            for (int i = j + tid % 32; i < count; i += 32) part[i] = 0.0f;
+            break;
+          }
+          const bool live = done != kAllDone
+              && !outside_box(s_pt, s_ext, j, cx, ly0, kPPT);
+          const float x = warp_sum_xor(live ? blend_slot(j) : 0.0f);
+          if (tid % 32 == 0) part[j] = x;
+        }
+      }
+
+      const int alive = __syncthreads_count(done != kAllDone);
+      if (kVisibility) {
+        // the block's sums of the batch's slots, warps added in order
+        for (int j = tid; j < count; j += threads) {
+          visibility[base + j] = block_slot_sum(s_part + j, threads / 32, kBatch);
+        }
       }
       // slots past the point where every pixel stopped keep their zeros
       if (!alive) break;
     }
-  }
 
-  if (inside) {
-    const long long pix = static_cast<long long>(py) * width + px;
 #pragma unroll
-    for (int f = 0; f < kMaxFeatures; ++f) {
-      if (f < num_features) image[pix * num_features + f] = acc[f];
+    for (int k = 0; k < kPPT; ++k) {
+      const int ly = ly0 + k;
+      const int px = tx * tile_size + lx, py = ty * tile_size + ly;
+      if (ly < tile_size && px < width && py < height) {
+        const long long pix = static_cast<long long>(py) * width + px;
+#pragma unroll
+        for (int f = 0; f < kCap; ++f) {
+          if (f < num_features) image[pix * num_features + f] = acc[k][f];
+        }
+        weight[pix] = kBlending ? alpha_acc[k] : (alpha_acc[k] > 0.0f ? 1.0f : 0.0f);
+      }
     }
-    weight[pix] = kBlending ? alpha_acc : (alpha_acc > 0.0f ? 1.0f : 0.0f);
   }
 }
 
-template <bool kAntialias, bool kBlending, bool kVisibility>
+template <bool kAntialias, bool kBlending, bool kVisibility, int kCap, int kPPT>
 cudaError_t launch(const float* points, const float* features,
                    const int* overlap_to_point, const int* tile_ranges,
-                   int num_tiles, int tiles_x, int tile_size, int width,
-                   int height, int num_features, float alpha_threshold,
+                   const int* tile_order, int* tile_counter, int num_tiles,
+                   int tiles_x, int tile_size, int width, int height,
+                   int num_features, float alpha_threshold,
                    float clamp_max_alpha, float saturate_threshold,
                    float* image, float* weight, float* visibility,
                    cudaStream_t stream) {
-  auto kernel = raster_forward_kernel<kAntialias, kBlending, kVisibility>;
-  const int threads = tile_size * tile_size;
-  const size_t smem = sizeof(float)
-      * (static_cast<size_t>(threads) * (kPointRows + num_features)
-         + (kVisibility ? static_cast<size_t>(threads / 32) * kSub : 0));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<num_tiles, threads, smem, stream>>>(
-      points, features, overlap_to_point, tile_ranges, tiles_x, tile_size,
-      width, height, num_features, alpha_threshold, clamp_max_alpha,
-      saturate_threshold, image, weight, visibility);
+  auto kernel =
+      raster_forward_kernel<kAntialias, kBlending, kVisibility, kCap, kPPT>;
+  const int threads = block_threads(tile_size, kPPT);
+  const size_t smem = sizeof(float) * static_cast<size_t>(kBatch)
+      * (kStageStride + 2 + num_features + (kVisibility ? (threads + 31) / 32 : 0));
+  int blocks = 0;
+  const cudaError_t err = persistent_blocks(kernel, threads, smem, num_tiles,
+                                            tile_counter, stream, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, smem, stream>>>(
+      points, features, overlap_to_point, tile_ranges, tile_order, tile_counter,
+      num_tiles, tiles_x, tile_size, width, height, num_features,
+      alpha_threshold, clamp_max_alpha, saturate_threshold, image, weight,
+      visibility);
   return cudaGetLastError();
 }
 
 using LaunchFn = cudaError_t (*)(const float*, const float*, const int*,
-                                 const int*, int, int, int, int, int, int,
-                                 float, float, float, float*, float*, float*,
-                                 cudaStream_t);
+                                 const int*, const int*, int*, int, int, int,
+                                 int, int, int, float, float, float, float*,
+                                 float*, float*, cudaStream_t);
 
-// the template instances, indexed by antialias * 4 + blending * 2 + visibility
-constexpr LaunchFn kLaunch[8] = {
-    launch<false, false, false>, launch<false, false, true>,
-    launch<false, true, false>,  launch<false, true, true>,
-    launch<true, false, false>,  launch<true, false, true>,
-    launch<true, true, false>,   launch<true, true, true>};
+// the template instances, seven for each (antialias, blending), indexed
+// by (antialias * 2 + blending) * 7 + instance: 0 and 1 without
+// visibility, two pixels a thread, F <= 4 and F <= 16; 2 and 3 the same
+// with one pixel a thread under antialias (the conic ones repeat 0 and 1);
+// 4, 5 and 6 with visibility, in the backward's layout
+// (pixels_per_thread): F <= 4 and 4 pixels a thread, F <= 4 and 2,
+// F <= 16 and 2
+#define TGR_INSTANCES(AA, BL)                                           \
+  launch<AA, BL, false, kSmallFeatures, 2>,                             \
+      launch<AA, BL, false, kMaxFeatures, 2>,                           \
+      launch<AA, BL, false, kSmallFeatures, AA ? 1 : 2>,                \
+      launch<AA, BL, false, kMaxFeatures, AA ? 1 : 2>,                  \
+      launch<AA, BL, true, kSmallFeatures, 4>,                          \
+      launch<AA, BL, true, kSmallFeatures, 2>,                          \
+      launch<AA, BL, true, kMaxFeatures, 2>
+constexpr LaunchFn kLaunch[28] = {
+    TGR_INSTANCES(false, false), TGR_INSTANCES(false, true),
+    TGR_INSTANCES(true, false), TGR_INSTANCES(true, true)};
+#undef TGR_INSTANCES
 
 }  // namespace
 
 extern "C" int tgr_raster_forward(
     const float* points, const float* features, const int* overlap_to_point,
-    const int* tile_ranges, int num_tiles, int tiles_x, int tile_size,
-    int width, int height, int num_features, float alpha_threshold,
-    float clamp_max_alpha, float saturate_threshold, int antialias,
-    int blending, float* image, float* weight, float* visibility,
-    void* stream) {
+    const int* tile_ranges, const int* tile_order, int* tile_counter,
+    int num_tiles, int tiles_x, int tile_size, int width, int height,
+    int num_features, float alpha_threshold, float clamp_max_alpha,
+    float saturate_threshold, int antialias, int blending, float* image,
+    float* weight, float* visibility, void* stream) {
   if (num_features < 1 || num_features > kMaxFeatures) return cudaErrorInvalidValue;
-  const int threads = tile_size * tile_size;
-  if (tile_size < 1 || threads > 1024) return cudaErrorInvalidValue;
+  if (tile_size < 1 || tile_size * tile_size > 1024) return cudaErrorInvalidValue;
   // the visibility sums shuffle over whole warps
-  if (visibility != nullptr && threads % 32 != 0) return cudaErrorInvalidValue;
+  if (visibility != nullptr && (tile_size * tile_size) % 32 != 0) {
+    return cudaErrorInvalidValue;
+  }
   if (num_tiles == 0) return cudaSuccess;
-  const int which = (antialias ? 4 : 0) + (blending ? 2 : 0)
-      + (visibility != nullptr ? 1 : 0);
-  return kLaunch[which](points, features, overlap_to_point, tile_ranges,
-                        num_tiles, tiles_x, tile_size, width, height,
-                        num_features, alpha_threshold, clamp_max_alpha,
-                        saturate_threshold, image, weight, visibility,
-                        static_cast<cudaStream_t>(stream));
+  // Without visibility each pixel is its own: two pixels a thread keep
+  // more threads in flight where pixels stop early, and one under the
+  // antialiased pdf, which measured faster so on a saturating frame (one
+  // needs ts * ts threads, so not at 32x32 tiles). The visibility sums take
+  // the backward's layout, whose visibility row they equal bit for bit.
+  const bool wide = num_features > kSmallFeatures;
+  const int instance = visibility == nullptr
+      ? (tile_size * tile_size <= 512 ? 2 : 0) + (wide ? 1 : 0)
+      : (wide ? 6 : (pixels_per_thread(tile_size, num_features) == 4 ? 4 : 5));
+  return kLaunch[((antialias ? 2 : 0) + (blending ? 1 : 0)) * 7 + instance](
+      points, features, overlap_to_point, tile_ranges, tile_order,
+      tile_counter, num_tiles, tiles_x, tile_size, width, height,
+      num_features, alpha_threshold, clamp_max_alpha, saturate_threshold,
+      image, weight, visibility, static_cast<cudaStream_t>(stream));
 }

@@ -195,7 +195,7 @@ def make_parameter_class(gaussians: Gaussians2D, base_lr: float = 0.1,
                                optimizer=optimizer)
 
 
-def synthetic_target(image_size: Tuple[int, int], device="cpu") -> torch.Tensor:
+def synthetic_target(image_size: Tuple[int, int], device="cuda") -> torch.Tensor:
   """Procedural (H, W, 3) float32 target: a smooth colour field and two
   hard-edged shapes for the split heuristic to chase."""
   w, h = image_size

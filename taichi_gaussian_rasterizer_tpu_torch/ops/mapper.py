@@ -30,6 +30,7 @@ Left out, because they exist only for XLA's static shapes on the TPU:
 two-level searchsorted.
 """
 
+import functools
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -74,6 +75,21 @@ class TileMapping:
   point_sentinel: int             # == N
   point_offsets: torch.Tensor     # (N+1,) int32 segment starts in point-
                                   # sorted slot order, clamped to K
+
+  @functools.cached_property
+  def tile_order(self) -> torch.Tensor:
+    """The CUDA raster kernels' tile queue order (`longest_first`),
+    computed once per mapping and shared by its launches."""
+    return longest_first(self.tile_ranges)
+
+
+def longest_first(tile_ranges: torch.Tensor) -> torch.Tensor:
+  """(T,) int32 tile ids, longest bin first, ties in tile order: the
+  order in which the CUDA raster kernels' persistent blocks take tiles, so
+  that the longest bins start first and the short ones fill the tail. It
+  decides no output value."""
+  lengths = tile_ranges[:, 1] - tile_ranges[:, 0]
+  return torch.argsort(lengths, descending=True, stable=True).to(torch.int32)
 
 
 def _footprint(points: torch.Tensor, image_size, tile_size: int,

@@ -46,7 +46,7 @@ from .tiles import image_to_tiles
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 RASTER_BACKWARD = CudaKernel(
     "raster_backward.cu", "tgr_raster_backward",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
      _I, _I, _I, ctypes.c_longlong, _P, _P])
 
 # elements of one (tiles, pixels, points) field the plain version
@@ -242,12 +242,13 @@ def raster_backward_cuda(points: torch.Tensor, features: torch.Tensor,
   rows = live_grad_rows(features.shape[1], compute_point_heuristic, vis_row,
                         config.antialias)
   out = torch.zeros((rows, k), dtype=torch.float32, device=points.device)
+  counter = torch.empty(1, dtype=torch.int32, device=points.device)
   RASTER_BACKWARD.launch(
       points.data_ptr(), features.data_ptr(),
       mapping.overlap_to_point.data_ptr(), mapping.tile_ranges.data_ptr(),
-      image.data_ptr(), weight.data_ptr(), grad_image.data_ptr(),
-      grad_weight.data_ptr(), th * tw, tw, ts, w, h, features.shape[1],
-      config.alpha_threshold, config.clamp_max_alpha,
+      mapping.tile_order.data_ptr(), counter.data_ptr(), image.data_ptr(),
+      weight.data_ptr(), grad_image.data_ptr(), grad_weight.data_ptr(),
+      th * tw, tw, ts, w, h, features.shape[1], config.alpha_threshold, config.clamp_max_alpha,
       config.saturate_threshold, int(config.antialias),
       int(compute_point_heuristic), int(vis_row), k, out.data_ptr(),
       torch.cuda.current_stream(points.device).cuda_stream)

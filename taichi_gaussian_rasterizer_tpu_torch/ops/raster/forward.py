@@ -41,7 +41,7 @@ MAX_FEATURES = 16   # kMaxFeatures in csrc/raster_forward.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 RASTER_FORWARD = CudaKernel(
     "raster_forward.cu", "tgr_raster_forward",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _I, _P, _P, _P, _P])
 
 # elements of one (tiles, pixels, points) field the plain version
@@ -206,11 +206,12 @@ def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
   weight = torch.empty((h, w), dtype=torch.float32, device=points.device)
   vis = (torch.zeros(mapping.overlap_to_point.shape, dtype=torch.float32,
                      device=points.device) if compute_visibility else None)
+  counter = torch.empty(1, dtype=torch.int32, device=points.device)
   RASTER_FORWARD.launch(
       points.data_ptr(), features.data_ptr(),
       mapping.overlap_to_point.data_ptr(), mapping.tile_ranges.data_ptr(),
-      th * tw, tw, ts, w, h, features.shape[1],
-      config.alpha_threshold, config.clamp_max_alpha,
+      mapping.tile_order.data_ptr(), counter.data_ptr(), th * tw, tw, ts, w, h,
+      features.shape[1], config.alpha_threshold, config.clamp_max_alpha,
       config.saturate_threshold, int(config.antialias),
       int(config.use_alpha_blending), image.data_ptr(), weight.data_ptr(),
       None if vis is None else vis.data_ptr(),

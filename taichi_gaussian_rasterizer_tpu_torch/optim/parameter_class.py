@@ -298,7 +298,7 @@ class ParameterClass:
 
   @staticmethod
   def from_state_dict(state: Dict[str, Any],
-                      device="cpu") -> "ParameterClass":
+                      device="cuda") -> "ParameterClass":
     """Rebuild from a `state_dict()` of this class or of the JAX
     package's, on `device`, keeping every array's dtype."""
     def to_t(x):

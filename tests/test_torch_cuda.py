@@ -24,12 +24,14 @@ weight is small. Segment sums: rtol 1e-5 (sums of a few slots, added in
 another order).
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 from taichi_gaussian_rasterizer_tpu_torch import RasterConfig
-from taichi_gaussian_rasterizer_tpu_torch.ops.mapper import map_to_tiles
+from taichi_gaussian_rasterizer_tpu_torch.ops.mapper import longest_first, map_to_tiles
 from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
     backward, forward, rasterize_with_tiles, reduce, reduce_slots_by_point,
     tiles)
@@ -72,7 +74,7 @@ def _kernel_vs_plain(device, config, n=2000, size=(200, 120), n_features=3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("antialias", [False, True])
 @pytest.mark.parametrize("blending", [True, False])
-@pytest.mark.parametrize("tile_size", [8, 16])
+@pytest.mark.parametrize("tile_size", [8, 16, 32])
 def test_kernel_matches_plain_on_card(cuda_device, antialias, blending, tile_size):
   diff = _kernel_vs_plain(cuda_device, RasterConfig(
       tile_size=tile_size, antialias=antialias, use_alpha_blending=blending))
@@ -364,7 +366,7 @@ def test_train_epoch_on_card_matches_cpu(cuda_device):
   config = RasterConfig(tile_size=16, compute_point_heuristic=True)
   g = random_2d_gaussians(torch.Generator().manual_seed(0), 500, size,
                           alpha_range=(0.7, 0.9))
-  ref = fit.synthetic_target(size)
+  ref = fit.synthetic_target(size, device="cpu")
   kernels = (forward.RASTER_FORWARD, backward.RASTER_BACKWARD, reduce.SEGMENT_SUM)
   before = [k.launch_count for k in kernels]
   card = fit.train_epoch(fit.make_parameter_class(g.to(cuda_device)),
@@ -378,3 +380,225 @@ def test_train_epoch_on_card_matches_cpu(cuda_device):
     got, want = card[0].tensors[k].cpu(), cpu[0].tensors[k]
     assert float((got - want).norm()) <= 1e-2 * float(want.norm()), k
   assert (card[3] >= 0).all() and torch.isfinite(card[2]).all()
+
+
+# ---- the block layout, the batches and the tile queue ----------------------
+
+BATCHES = (128, 256)   # slots a batch: kBatch of the backward and the forward
+
+
+def _constructed_bins(device, lengths, saturating=(), tile_size=16,
+                      n_features=3, seed=40):
+  """One row of tiles whose bins hold `lengths` slots, each slot a point
+  near its tile; the tiles in `saturating` get wide opaque points, so
+  that their pixels saturate inside a batch. A few sentinel slots trail
+  the bins, as the mapper's do."""
+  from taichi_gaussian_rasterizer_tpu_torch.ops.mapper import TileMapping
+  rng = np.random.default_rng(seed)
+  ts, n_tiles = tile_size, len(lengths)
+  rows, feats = [], []
+  for i, m in enumerate(lengths):
+    opaque = i in saturating
+    mean = rng.uniform(size=(m, 2)) * (ts + 8) - 4 + [i * ts, 0]
+    sigma = np.sort(rng.uniform(*((3.0, 10.0) if opaque else (0.8, 6.0)),
+                                size=(m, 2)), axis=1)[:, ::-1]
+    theta = rng.uniform(0, np.pi, size=m)
+    alpha = rng.uniform(*((0.6, 0.99) if opaque else (0.05, 0.6)), size=m)
+    rows.append(np.concatenate([mean, np.cos(theta)[:, None],
+                                np.sin(theta)[:, None], sigma, alpha[:, None]], 1))
+    feats.append(rng.uniform(size=(m, n_features)))
+  n = int(sum(lengths))
+  tail = 5
+  ends = np.cumsum(lengths)
+  as_i32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
+  mapping = TileMapping(
+      overlap_to_point=as_i32(np.concatenate([np.arange(n), np.full(tail, n)])),
+      overlap_to_tile=as_i32(np.concatenate(
+          [np.repeat(np.arange(n_tiles), lengths), np.full(tail, n_tiles)])),
+      tile_ranges=as_i32(np.stack([ends - lengths, ends], 1)),
+      tile_shape=(1, n_tiles),
+      total_overlaps=torch.tensor(n, device=device),
+      overflow=torch.tensor(False, device=device),
+      point_sentinel=n,
+      point_offsets=as_i32(np.arange(n + 1)))
+  pts = torch.tensor(np.concatenate(rows), dtype=torch.float32, device=device)
+  f = torch.tensor(np.concatenate(feats), dtype=torch.float32, device=device)
+  return pts, f, mapping, (ts * n_tiles, ts)
+
+
+def _both_kernels_against_plain(device, pts, f, mapping, size, config):
+  """Forward (image, weight, visibility) and backward (heuristic and
+  visibility rows) against plain; the forward's visibility equal to the
+  backward's visibility row bit for bit. Returns the backward rows."""
+  image, weight, vis = forward.rasterize_forward(pts, f, mapping, size, config,
+                                                 compute_visibility=True)
+  want_img, want_w, want_vis = forward.rasterize_tiles_plain(
+      pts, f, mapping, config, visibility_image_size=size)
+  want = tiles.tiles_to_image(torch.cat([want_img, want_w[:, None]], 1),
+                              mapping.tile_shape, config.tile_size, size)
+  diff = (torch.cat([image, weight[..., None]], -1) - want).abs()
+  assert float(diff.max()) <= 2e-2
+  assert float(torch.quantile(diff.flatten(), 0.999)) <= 1e-4
+  scale = float(want_vis.abs().max())
+  assert scale > 0
+  assert float((vis - want_vis).abs().max()) <= 1e-2 * scale
+  rng = np.random.default_rng(3)
+  g_img = torch.tensor(rng.normal(size=tuple(image.shape)), dtype=torch.float32,
+                       device=device)
+  g_w = torch.tensor(rng.normal(size=tuple(weight.shape)), dtype=torch.float32,
+                     device=device)
+  args = (pts, f, mapping, config, image, weight, g_img, g_w)
+  rows = backward.rasterize_backward(*args, compute_point_heuristic=True,
+                                     vis_row=True)
+  assert_rows_close(rows, backward.raster_backward_plain(
+      *args, compute_point_heuristic=True, vis_row=True))
+  vis_row = (7 if config.antialias else 6) + 2
+  assert torch.equal(vis, rows[vis_row])
+  return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antialias", [False, True])
+def test_kernels_on_bins_of_every_batch_shape(cuda_device, antialias):
+  """Bins of 0 slots, 1 slot, exactly one batch of either kernel, several
+  batches with a short last one, and two tiles that saturate inside a
+  batch; the slots after a saturated tile's stop and the sentinel tail
+  hold 0."""
+  lengths = (0, 1, *BATCHES, 300, 700, 300)
+  pts, f, mapping, size = _constructed_bins(cuda_device, lengths,
+                                            saturating=(5, 6))
+  config = RasterConfig(tile_size=16, antialias=antialias)
+  rows = _both_kernels_against_plain(cuda_device, pts, f, mapping, size, config)
+  assert (rows[:, int(mapping.total_overlaps):] == 0).all()
+  end = int(mapping.tile_ranges[5, 1])
+  assert (rows[:, end - 200:end] == 0).all()   # the saturated tile's last slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_features", [1, 3, 16])
+@pytest.mark.parametrize("tile_size", [8, 16, 32])
+def test_kernels_at_every_tile_size_and_width(cuda_device, tile_size, n_features):
+  """Both kernels against plain for tile sizes 8, 16, 32 (two or four
+  pixels a thread) and F = 1, 3, 16 (the F <= 4 and F <= 16 instances);
+  the forward's visibility equals the backward's visibility row bit for
+  bit at every tile size."""
+  config = RasterConfig(tile_size=tile_size)
+  size = (200, 120)
+  pts, depth, f = _scene(cuda_device, 2000, size, n_features)
+  mapping = map_to_tiles(pts, depth, size, config)
+  _both_kernels_against_plain(cuda_device, pts, f, mapping, size, config)
+
+
+@pytest.mark.cuda
+def test_two_runs_identical_under_the_tile_queue(cuda_device):
+  """More tiles than the persistent grid holds at once, so blocks take
+  tiles from the queue in an order that varies between runs: the image,
+  the visibility and the backward rows are bitwise identical all the
+  same."""
+  config = RasterConfig(tile_size=16)
+  args = _backward_inputs(cuda_device, config, n=20_000, size=(1280, 960))
+  pts, f, mapping = args[:3]
+  a = forward.rasterize_forward(pts, f, mapping, (1280, 960), config,
+                                compute_visibility=True)
+  b = forward.rasterize_forward(pts, f, mapping, (1280, 960), config,
+                                compute_visibility=True)
+  assert all(torch.equal(x, y) for x, y in zip(a, b))
+  kw = dict(compute_point_heuristic=True, vis_row=True)
+  r1 = backward.rasterize_backward(*args[:3], config, *args[3:], **kw)
+  r2 = backward.rasterize_backward(*args[:3], config, *args[3:], **kw)
+  assert torch.equal(r1, r2)
+
+
+@pytest.mark.cuda
+def test_tile_order_on_card_matches_cpu(cuda_device):
+  config = RasterConfig(tile_size=16)
+  pts, depth, _ = _scene(cuda_device, 3000, (300, 200), 3)
+  mapping = map_to_tiles(pts, depth, (300, 200), config)
+  got = mapping.tile_order
+  assert got.dtype == torch.int32 and got.is_cuda
+  assert torch.equal(got.cpu(), longest_first(mapping.tile_ranges.cpu()))
+
+
+# the test in raster_common.cuh's outside_box, and its replacement in a
+# build whose box skips nothing
+_BOX_TEST = "return fabsf(cx - m.x) > e.x || ry > e.y;"
+_boxless = {}
+
+
+def _boxless_kernels(tmp_dir):
+  """The forward and backward kernels built from a copy of csrc/ whose
+  outside_box never skips a slot (built once)."""
+  if not _boxless:
+    from taichi_gaussian_rasterizer_tpu_torch.utils import cuda_build
+    csrc = tmp_dir / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    header = csrc / "raster_common.cuh"
+    text = header.read_text()
+    assert text.count(_BOX_TEST) == 1
+    header.write_text(text.replace(_BOX_TEST, "return false;"))
+    kernels = {"RASTER_FORWARD": forward.RASTER_FORWARD,
+               "RASTER_BACKWARD": backward.RASTER_BACKWARD}
+    built = {name: cuda_build.CudaKernel(k.source, k.symbol, k.argtypes)
+             for name, k in kernels.items()}
+    saved = cuda_build.CSRC_DIR, cuda_build.BUILD_DIR
+    cuda_build.CSRC_DIR, cuda_build.BUILD_DIR = csrc, tmp_dir / "build"
+    try:
+      cuda_build.load_all(list(built.values()))
+    finally:
+      cuda_build.CSRC_DIR, cuda_build.BUILD_DIR = saved
+    _boxless.update(built)
+  return _boxless
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("aspect", [30.0, 3000.0])
+def test_threshold_box_keeps_every_pixel_above_threshold(
+    cuda_device, tmp_path_factory, monkeypatch, aspect, antialias):
+  """The kernels skip a (pixel, slot) pair outside the slot's threshold
+  box. Thin splats (sigma ratios up to 30 and 3000, where the conic box
+  grows with the conditioning or is unbounded) with alphas just above the
+  threshold put many pixels near the box edge: the image, weight,
+  visibility (blending and quantile) and backward rows match the plain
+  version, and are bitwise equal to the same kernels built with a box
+  that skips nothing."""
+  rng = np.random.default_rng(50)
+  n, size = 1500, (160, 96)
+  mean = rng.uniform(size=(n, 2)) * [size[0], size[1]]
+  theta = rng.uniform(0, np.pi, size=n)
+  long_side = rng.uniform(2.0, 12.0, size=n)
+  sigma = np.stack([long_side, long_side / rng.uniform(1.0, aspect, size=n)], 1)
+  alpha = rng.uniform(1.0 / 255.0, 3.0 / 255.0, size=n)
+  alpha[: n // 2] = rng.uniform(0.2, 0.9, size=n // 2)
+  pts = torch.tensor(np.concatenate(
+      [mean, np.cos(theta)[:, None], np.sin(theta)[:, None], sigma,
+       alpha[:, None]], 1), dtype=torch.float32, device=cuda_device)
+  depth = torch.tensor(rng.permutation(n) / n + 0.1, dtype=torch.float32,
+                       device=cuda_device)
+  f = torch.tensor(rng.uniform(size=(n, 3)), dtype=torch.float32,
+                   device=cuda_device)
+  config = RasterConfig(tile_size=16, antialias=antialias)
+  mapping = map_to_tiles(pts, depth, size, config)
+  _both_kernels_against_plain(cuda_device, pts, f, mapping, size, config)
+
+  def outputs():
+    out = []
+    for cfg in (config, config.replace(use_alpha_blending=False)):
+      out += forward.rasterize_forward(pts, f, mapping, size, cfg)
+      out += forward.rasterize_forward(pts, f, mapping, size, cfg,
+                                       compute_visibility=True)
+    image, weight = out[:2]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    g_img = torch.randn(tuple(image.shape), generator=g, device=cuda_device)
+    g_w = torch.randn(tuple(weight.shape), generator=g, device=cuda_device)
+    out.append(backward.rasterize_backward(
+        pts, f, mapping, config, image, weight, g_img, g_w,
+        compute_point_heuristic=True, vis_row=True))
+    return out
+
+  boxed = outputs()
+  for name, kernel in _boxless_kernels(tmp_path_factory.mktemp("boxless")).items():
+    monkeypatch.setattr(forward if name == "RASTER_FORWARD" else backward,
+                        name, kernel)
+  unboxed = outputs()
+  assert all(torch.equal(a, b) for a, b in zip(boxed, unboxed))

@@ -84,7 +84,7 @@ def test_find_split_prune_matches_jax(n, target, n_prune):
 
 
 def test_synthetic_target_matches_jax():
-  got = tfit.synthetic_target((96, 64))
+  got = tfit.synthetic_target((96, 64), device="cpu")
   want = np.asarray(jfit.synthetic_target(jax.random.PRNGKey(1), (96, 64)))
   assert got.dtype == torch.float32 and got.shape == (64, 96, 3)
   np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-7)
@@ -102,7 +102,8 @@ def _init(seed, dtype, n=80):
   g = scenes.gaussians2d(seed, n, SIZE, scale_factor=1.5, alpha_range=(0.5, 0.9))
   ref = np.random.default_rng(seed + 1).uniform(size=(SIZE[1], SIZE[0], 3))
   jg = jfit.tensors_to_gaussians({k: jnp.asarray(v, dtype) for k, v in g.items()})
-  tg = convert.gaussians2d_from_numpy(**g, dtype=scenes.TORCH_DTYPE[dtype])
+  tg = convert.gaussians2d_from_numpy(**g, device="cpu",
+                                     dtype=scenes.TORCH_DTYPE[dtype])
   return (jfit.make_parameter_class(jg), jnp.asarray(ref, dtype),
           tfit.make_parameter_class(tg), scenes.to_torch(ref, dtype))
 
@@ -187,7 +188,7 @@ def test_train_epoch_float32_matches_jax_train_epoch():
 
 def test_fit_image_converges():
   """The mirror of tests/test_fit_image.py::test_fit_image_converges."""
-  ref = tfit.synthetic_target((96, 64))
+  ref = tfit.synthetic_target((96, 64), device="cpu")
   config = RasterConfig(tile_size=16, compute_point_heuristic=True)
   logs, history = [], []
   params, image = tfit.fit(ref, n=150, target=400, total_iters=80,

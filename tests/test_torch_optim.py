@@ -183,7 +183,7 @@ def test_state_dict_roundtrip():
   p = make_params(n=6)
   p.step({"position": torch.ones(6, 3)}, visibility=torch.ones(6))
   sd = p.state_dict()
-  q = ParameterClass.from_state_dict(sd)
+  q = ParameterClass.from_state_dict(sd, device="cpu")
   torch.testing.assert_close(q.tensors["position"], p.tensors["position"],
                              rtol=0, atol=0)
   torch.testing.assert_close(q.state["position"].v, p.state["position"].v,

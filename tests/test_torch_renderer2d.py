@@ -43,7 +43,7 @@ FIELDS = ("position", "z_depth", "log_scaling", "rotation", "alpha_logit",
 def both(seed, n=60, **kw):
   g = scenes.gaussians2d(seed, n, SIZE, **kw)
   return (jax_data_types.Gaussians2D(**{k: jnp.asarray(v) for k, v in g.items()}),
-          convert.gaussians2d_from_numpy(**g, dtype=torch.float64))
+          convert.gaussians2d_from_numpy(**g, device="cpu", dtype=torch.float64))
 
 
 def close(got, want, atol=1e-12):

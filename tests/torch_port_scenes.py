@@ -113,10 +113,10 @@ def jax_scene(cam, g, dtype):
 
 def torch_scene(cam, g, dtype):
   tdtype = TORCH_DTYPE[dtype]
-  return (convert.gaussians_from_numpy(**g, dtype=tdtype),
+  return (convert.gaussians_from_numpy(**g, device="cpu", dtype=tdtype),
           convert.camera_from_numpy(cam["projection"], cam["T_camera_world"],
                                     cam["near"], cam["far"], cam["image_size"],
-                                    dtype=tdtype))
+                                    device="cpu", dtype=tdtype))
 
 
 def to_torch(x, dtype=None):
