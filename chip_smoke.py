@@ -6,9 +6,11 @@ Builds the port's three CUDA kernels from the checkout's sources, holds
 each against its plain PyTorch version, and drives the serving path,
 `render_gaussians` (also with per-point visibility and 16-bit depth
 keys), the training frame, `render_gaussians` then `loss.backward()`, at
-the benchmark's size, 1M random gaussians at 2048x1536, and the 2D
+the benchmark's size, 1M random gaussians at 2048x1536, the 2D
 image-fitting trainer, `fit`, growing to 1M gaussians on a 2048x1536
-target. Phases, each printing its lines:
+target, and the trained-scene path: a 1M-gaussian trained-like scene
+loaded from a 3DGS `.ply`, served and trained with saturation-front
+truncation. Phases, each printing its lines:
 
 1. build -- nvcc builds csrc/raster_forward.cu, raster_backward.cu and
    segment_sum.cu for sm_90a, one process each, all at once; prints the
@@ -28,6 +30,13 @@ target. Phases, each printing its lines:
    the kernel's per-slot visibility against the plain version's, two runs
    bitwise identical, and in blending mode the per-point sums (kernel 3)
    adding up to the weight image to relative 1e-5; both versions' times.
+2d. the forward's per-tile saturation front against plain -- phase 2's
+   scene, blending, conic and antialias, with and without visibility:
+   `tile_front` from the kernel against the plain version's; the tiles
+   whose fronts differ are at most 0.5% of the non-empty tiles and each
+   one of them a tile where the two images differ (a gate flipped between
+   the two roundings); two runs bitwise identical; the kernel's time with
+   and without the front, and the plain version's.
 3. the serving slice at full size -- five renders of RGB features with
    `RasterConfig()` defaults, the launch counts set to 0 just before them
    and read just after; checks one forward launch per render, finite
@@ -63,6 +72,34 @@ target. Phases, each printing its lines:
    PSNR above the first's; prints each epoch's N, PSNR, loss, median
    ms/step and split and prune counts, and the peak device memory. The
    JSON line's launch counts are this phase's.
+8. the trained-scene path at full size -- `trained_like_gaussians` (seed
+   4) at phase 3's size, written with `save_gaussians_ply`, read back
+   with `load_gaussians_ply(morton_order=True)` onto the card, its DC band
+   as RGB; `probe_visit_chunks(margin_chunks=0)`. Prints the PLY times,
+   overlaps/point, points per tile p10/p50/p90/p99/max, the footprint clip
+   flag, visit_capacity / K and the kept slots. Serving: three renders
+   with the probed `visit_chunks` and three without, one forward launch
+   each; `raster_overflow` False and image and weight equal bit for bit;
+   ms/frame and the split into probe, projection, mapper, truncate and
+   raster. The backward kernel and the reduction on both mappings.
+   Training: five steps (project_to_image, map_to_tiles,
+   rasterize_with_tiles, loss sum(image * G), backward, SGD) through
+   `TruncationGuard(config, margin_chunks=0)` and five untruncated: one
+   launch of each kernel a step plus the guard's probes and re-renders,
+   finite non-zero gradients on all five tensors, equal bit for bit to the
+   untruncated step's at every step; ms/step and peak device memory; the
+   same steps through guards with margin_chunks 1, 4 and 16, their reprobes
+   and ms/step, held to the same gradients; and, one SGD step on, how many
+   truncated tiles the first frame's probe crops and why. Then
+   `bench.py`'s ms_heavy scene (`random_3d_gaussians`, scale_factor 4,
+   alpha 0.75-0.99) at the same size: one render and three steps each
+   way, held to the same equalities.
+
+Truncation is exact, so phase 8 holds the truncated frame to the
+untruncated one bit for bit: it keeps each tile's bin up to where every
+pixel has stopped, in the same order, so each pixel blends the same
+slots; the dropped slots' gradient rows are exact zeros, and kernel 3
+adds each point's slots in slot order, so their zeros drop out exactly.
 
 Tolerances (float32, kernel against plain on the same inputs):
 * forward: p99.99 |diff| <= 1e-4 everywhere, and max |diff| <= 2e-2 in
@@ -80,7 +117,7 @@ Tolerances (float32, kernel against plain on the same inputs):
 * forward visibility: the forward's tolerances above, on the per-slot
   sums.
 
-Phases 2b, 2c, 3, 4b and 5 print each kernel's bound beside its time: the
+Phases 2b, 2c, 3, 4b, 5 and 8 print each kernel's bound beside its time: the
 larger of its bytes over the card's memory rate and its FP32 operations
 over the card's FP32 rate, the operations counted on the (pixel, slot)
 pairs of the phase's own frame whose alpha passes the threshold
@@ -199,6 +236,12 @@ def check_segment_sums(label: str, got, want):
   return float((got - want).abs().max())
 
 
+def bound_line(b, ms):
+  """A kernel's bound on a frame beside its measured time."""
+  return (f"bound {b['ms']:.4f} ms ({b['bound_by']}: {b['ops'] / 1e9:.3f} "
+          f"GFLOP, {b['bytes'] / 1e6:.1f} MB), share {b['ms'] / ms:.3f}")
+
+
 def ptxas_summary(log: str) -> str:
   regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
   spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
@@ -254,6 +297,296 @@ def saturating_frame(device):
       features=scene.feature.contiguous(), g_image=g_image, g_weight=g_weight)
 
 
+def train_steps(scene, camera, config, g_image, steps, guard=None, lr=1e-6):
+  """`steps` SGD steps on sum(image * G) from `scene`, through the
+  package's entry points: project_to_image, map_to_tiles and
+  rasterize_with_tiles, with saturation-front truncation through `guard`
+  (a TruncationGuard) when one is given, then loss.backward(). Returns
+  (each step's gradients, each step's ms on the host clock)."""
+  import taichi_gaussian_rasterizer_tpu_torch as tgr
+  from taichi_gaussian_rasterizer_tpu_torch.ops import lib
+  params = {f.name: getattr(scene, f.name).detach().clone().requires_grad_()
+            for f in dataclasses.fields(tgr.Gaussians3D)}
+  size, near, far = camera.image_size, camera.near_plane, camera.far_plane
+  grads, times = [], []
+  for _ in range(steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gaussians = tgr.Gaussians3D(**params)
+    points, depths, _ = tgr.project_to_image(gaussians, camera, config)
+    ndc = lib.ndc_depth(torch.clamp(depths, min=near), near, far)
+    mapping = tgr.map_to_tiles(points.detach(), ndc[:, 0].detach(), size, config)
+
+    def frame(visit_chunks=None, visit_capacity=None):
+      out = tgr.rasterize_with_tiles(points, gaussians.feature, mapping, size,
+                                     config, visit_chunks=visit_chunks,
+                                     visit_capacity=visit_capacity)
+      return out, out.bin_overflow
+
+    out = frame()[0] if guard is None else guard.render(points.detach(),
+                                                        mapping, frame)
+    (out.image * g_image).sum().backward()
+    with torch.no_grad():
+      for p in params.values():
+        p -= lr * p.grad
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    grads.append({name: p.grad for name, p in params.items()})
+    for p in params.values():
+      p.grad = None
+  return grads, times
+
+
+def check_grads(label, grads, want=None):
+  """Finite, non-zero gradients on every Gaussians3D tensor, and with
+  `want` equal to those bit for bit (torch.equal)."""
+  for name, g in grads.items():
+    assert torch.isfinite(g).all(), f"{label}: non-finite gradient of {name}"
+    assert g.abs().sum() > 0, f"{label}: zero gradient of {name}"
+    if want is not None:
+      assert torch.equal(g, want[name]), (
+          f"{label}: {name} gradient differs from the untruncated step's, max "
+          f"|diff| {float((g - want[name]).abs().max()):.3e}")
+
+
+def trained_scene(args, dev, card, kernels, camera, g_image):
+  """Phase 8: the trained-scene path at full size (module docstring)."""
+  import os
+  import tempfile
+  import taichi_gaussian_rasterizer_tpu_torch as tgr
+  from taichi_gaussian_rasterizer_tpu_torch.io import (load_gaussians_ply,
+                                                       save_gaussians_ply)
+  from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
+      backward, bounds, forward, reduce_slots_by_point)
+  from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import (
+      random_3d_gaussians, random_camera, trained_like_gaussians)
+
+  def reset_counts():
+    for k in kernels.values():
+      k.launch_count = 0
+
+  def counts():
+    return {name: k.launch_count for name, k in kernels.items()}
+
+  width, height = args.size
+  size = (width, height)
+  config = tgr.RasterConfig()
+  g = config.points_per_chunk
+  print(f"[8 trained scene] trained_like_gaussians({args.n}) @{width}x{height}, "
+        f"through a 3DGS .ply, RGB, RasterConfig(); {card}")
+  gen = torch.Generator(device=dev).manual_seed(4)
+  camera8 = random_camera(gen, image_size=size)
+  made = trained_like_gaussians(gen, args.n, camera8)
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "trained_like.ply")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_gaussians_ply(path, made)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_gaussians_ply(path, morton_order=True, device="cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    mbytes = os.path.getsize(path) / 1e6
+  # a degree-0 checkpoint: its DC band as plain RGB
+  scene = dataclasses.replace(loaded, feature=loaded.feature[:, :, 0].contiguous())
+  del made, loaded
+  features = scene.feature
+
+  with torch.no_grad():
+    points, mapping = project_and_map(scene, camera8, config)
+    total, k_slots = int(mapping.total_overlaps), mapping.overlap_to_point.shape[0]
+    bins = (mapping.tile_ranges[:, 1] - mapping.tile_ranges[:, 0]).double()
+    pct = torch.quantile(bins, torch.tensor([0.1, 0.5, 0.9, 0.99],
+                                            dtype=torch.float64, device=dev))
+    reset_counts()
+    visit, cap = tgr.probe_visit_chunks(points, mapping, config, margin_chunks=0)
+    assert counts()["raster_forward"] == 1, counts()
+    truncated, _, _ = tgr.truncate_mapping(mapping, visit, cap, g)
+    kept = int(truncated.total_overlaps)
+    print(f"  .ply {mbytes:.1f} MB written in {write_s:.3f} s, read with Morton "
+          f"order onto the card in {read_s:.3f} s; {total} overlaps "
+          f"({total / args.n:.2f}/point) in {k_slots} slots; points per tile "
+          f"p10/p50/p90/p99 {[int(x) for x in pct.tolist()]} max "
+          f"{int(bins.max())}; footprint clip flag {bool(mapping.overflow)}")
+    print(f"  probe_visit_chunks(margin_chunks=0): visit_capacity {cap} = "
+          f"{cap / k_slots:.4f} of K; the truncated mapping keeps {kept} of "
+          f"{k_slots} slots ({kept / k_slots:.4f})")
+
+    # serving: three renders untruncated, three truncated
+    renders = {}
+    for label, kw in (("untruncated", {}),
+                      ("truncated", dict(visit_chunks=visit, visit_capacity=cap))):
+      reset_counts()
+      times = []
+      for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = tgr.render_gaussians(scene, camera8, config, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+      assert counts() == {"raster_forward": 3, "raster_backward": 0,
+                          "segment_sum": 0}, counts()
+      assert torch.isfinite(r.image).all() and r.image.shape == (height, width, 3)
+      renders[label] = r
+      print(f"  serving, {label}: ms/frame median {statistics.median(times):.3f} "
+            f"(3 renders: {', '.join(f'{t:.3f}' for t in times)}); launches "
+            f"{counts()}")
+    full, tr = renders["untruncated"], renders["truncated"]
+    assert full.raster_overflow is None
+    assert not bool(tr.raster_overflow), "truncation cropped a tile"
+    assert torch.equal(tr.image, full.image), "truncated image differs"
+    assert torch.equal(tr.image_weight, full.image_weight), "truncated weight differs"
+    saturated = float((full.image_weight >= config.saturate_threshold).double().mean())
+    print(f"  raster_overflow False; image and weight equal to the untruncated "
+          f"render's bit for bit; saturated pixels {saturated:.4f}")
+
+    probe_ms = host_ms(lambda: tgr.probe_visit_chunks(points, mapping, config,
+                                                      margin_chunks=0), 3)
+    proj_ms = host_ms(lambda: tgr.project_to_image(scene, camera8, config), 3)
+    map_ms = host_ms(lambda: project_and_map(scene, camera8, config), 3) - proj_ms
+    trunc_ms = host_ms(lambda: tgr.truncate_mapping(mapping, visit, cap, g), 3)
+    raster_ms = host_ms(lambda: tgr.rasterize_with_tiles(
+        points, features, mapping, size, config), 3)
+    raster_tr_ms = host_ms(lambda: tgr.rasterize_with_tiles(
+        points, features, mapping, size, config, visit_chunks=visit,
+        visit_capacity=cap), 3)
+    fwd_full_ms = cuda_ms(lambda: forward.rasterize_forward(
+        points, features, mapping, size, config), reps=10)
+    fwd_tr_ms = cuda_ms(lambda: forward.rasterize_forward(
+        points, features, truncated, size, config, tile_front=True), reps=10)
+    print(f"  frame split (host clock, synchronised, median of 3): probe "
+          f"{probe_ms:.3f} ms, projection {proj_ms:.3f} ms, mapper {map_ms:.3f} "
+          f"ms, truncate {trunc_ms:.3f} ms, raster {raster_ms:.3f} ms "
+          f"untruncated / {raster_tr_ms:.3f} ms truncated (truncate included); "
+          f"forward kernel (CUDA events) {fwd_full_ms:.4f} ms on the {k_slots} "
+          f"slots, {fwd_tr_ms:.4f} ms on the {kept} kept slots with tile_front")
+    # the work the function needs lies in the kept prefixes; the bytes
+    # bound counts each mapping's own slots
+    work = bounds.raster_work(points, truncated, config, size)
+    n_tiles = mapping.tile_ranges.shape[0]
+    fwd_bounds = [bounds.forward_bound(work, args.n, 3, k, n_tiles, size, False)
+                  for k in (k_slots, kept)]
+    print(f"  {work['evaluated']} (pixel, slot) pairs before the pixels stop, "
+          f"{work['active']} above the alpha threshold; forward kernel "
+          f"untruncated: {bound_line(fwd_bounds[0], fwd_full_ms)}; truncated: "
+          f"{bound_line(fwd_bounds[1], fwd_tr_ms)}")
+
+    # the backward kernel and the reduction on both mappings
+    image, weight = forward.rasterize_forward(points, features, mapping, size,
+                                              config)
+    zeros = torch.zeros_like(weight)
+    bw = {name: (points, features, m, config, image, weight, g_image, zeros)
+          for name, m in (("untruncated", mapping), ("truncated", truncated))}
+    slots = {name: backward.rasterize_backward(*a) for name, a in bw.items()}
+    for name, a in bw.items():
+      m = a[2]
+      b_ms = cuda_ms(lambda: backward.rasterize_backward(*a), reps=5)
+      r_ms = cuda_ms(lambda: reduce_slots_by_point(slots[name], m), reps=5)
+      b = bounds.backward_bound(work, args.n, 3, m.overlap_to_point.shape[0],
+                                n_tiles, size, False, False, False)
+      print(f"  {name} mapping, {m.overlap_to_point.shape[0]} slots: backward "
+            f"kernel {b_ms:.4f} ms, {bound_line(b, b_ms)}; reduction (sort + "
+            f"gather + segment sum) {r_ms:.4f} ms (CUDA events)")
+    del image, weight, slots, bw
+
+  # training: five steps through TruncationGuard and five untruncated
+  steps = 5
+  torch.cuda.reset_peak_memory_stats()
+  guard = tgr.TruncationGuard(config, margin_chunks=0)
+  reset_counts()
+  grads_tr, times_tr = train_steps(scene, camera8, config, g_image, steps, guard)
+  launches = counts()
+  peak_tr = torch.cuda.max_memory_allocated() / 2**30
+  torch.cuda.reset_peak_memory_stats()
+  reset_counts()
+  grads_full, times_full = train_steps(scene, camera8, config, g_image, steps)
+  launches_full = counts()
+  peak_full = torch.cuda.max_memory_allocated() / 2**30
+  print(f"  training, {steps} steps through TruncationGuard(config, "
+        f"margin_chunks=0): {guard.reprobes} reprobes, launches {launches}; "
+        f"untruncated: launches {launches_full}")
+  assert launches == {"raster_forward": steps + 1 + 2 * guard.reprobes,
+                      "raster_backward": steps, "segment_sum": steps}, launches
+  assert all(v == steps for v in launches_full.values()), launches_full
+  for i, (got, want) in enumerate(zip(grads_tr, grads_full)):
+    check_grads(f"step {i}", got, want)
+  print(f"  finite, non-zero gradients on all five tensors, equal bit for bit "
+        f"to the untruncated steps' at every step")
+  print(f"  ms/step median {statistics.median(times_tr):.3f} truncated "
+        f"({', '.join(f'{t:.3f}' for t in times_tr)}; the first includes the "
+        f"probe), {statistics.median(times_full):.3f} untruncated "
+        f"({', '.join(f'{t:.3f}' for t in times_full)}); peak device memory "
+        f"{peak_tr:.2f} / {peak_full:.2f} GiB")
+  # the SGD steps move the fronts and shift every later tile's start
+  # against the chunk grid: how much margin keeps the guard from reprobing
+  for margin in (1, 4, 16):
+    guard_m = tgr.TruncationGuard(config, margin_chunks=margin)
+    reset_counts()
+    grads_m, times_m = train_steps(scene, camera8, config, g_image, steps, guard_m)
+    for i, (got, want) in enumerate(zip(grads_m, grads_full)):
+      check_grads(f"margin {margin}, step {i}", got, want)
+    print(f"  through TruncationGuard(config, margin_chunks={margin}): "
+          f"{guard_m.reprobes} reprobes, launches {counts()}, capacity "
+          f"{guard_m.visit_capacity}; gradients equal bit for bit too; ms/step "
+          f"median {statistics.median(times_m):.3f} "
+          f"({', '.join(f'{t:.3f}' for t in times_m)})")
+  # why the guard reprobes: one SGD step later, which truncated tiles the
+  # first frame's probe crops, and whether they still saturate at all
+  with torch.no_grad():
+    moved = tgr.Gaussians3D(**{k: getattr(scene, k) - 1e-6 * grads_full[0][k]
+                               for k in grads_full[0]})
+    points1, mapping1 = project_and_map(moved, camera8, config)
+    *_, front_full = forward.rasterize_forward(points1, moved.feature, mapping1,
+                                               size, config, tile_front=True)
+    for margin in (0, 16):
+      visit_m, _ = tgr.probe_visit_chunks(points, mapping, config, margin)
+      tr1, cut, _ = tgr.truncate_mapping(mapping1, visit_m, None, g)
+      *_, front_tr = forward.rasterize_forward(points1, moved.feature, tr1, size,
+                                               config, tile_front=True)
+      cropped = cut & (front_tr <= 0)
+      print(f"  one SGD step on, the first frame's margin-{margin} probe crops "
+            f"{int(cropped.sum())} of its {int(cut.sum())} truncated tiles: "
+            f"{int((cropped & (front_full < 0)).sum())} of them no longer "
+            f"saturate within their whole bin, "
+            f"{int((cropped & (front_full > 0)).sum())} saturate past the kept "
+            f"prefix")
+  del grads_tr, grads_full, grads_m
+
+  # ms_heavy's scene: one truncated and one untruncated step
+  gen = torch.Generator(device=dev).manual_seed(5)
+  heavy = random_3d_gaussians(gen, args.n, camera, scale_factor=4.0,
+                              alpha_range=(0.75, 0.99))
+  with torch.no_grad():
+    points_h, mapping_h = project_and_map(heavy, camera, config)
+    visit_h, cap_h = tgr.probe_visit_chunks(points_h, mapping_h, config,
+                                            margin_chunks=0)
+    kept_h = int(tgr.truncate_mapping(mapping_h, visit_h, cap_h, g)[0].total_overlaps)
+    full_h = tgr.render_gaussians(heavy, camera, config)
+    tr_h = tgr.render_gaussians(heavy, camera, config, visit_chunks=visit_h,
+                                visit_capacity=cap_h)
+    assert not bool(tr_h.raster_overflow), "heavy: truncation cropped a tile"
+    assert torch.equal(tr_h.image, full_h.image), "heavy: truncated image differs"
+    assert torch.equal(tr_h.image_weight, full_h.image_weight)
+  k_h = mapping_h.overlap_to_point.shape[0]
+  guard_h = tgr.TruncationGuard(config, margin_chunks=0)
+  g_tr, t_tr = train_steps(heavy, camera, config, g_image, 3, guard_h)
+  g_full, t_full = train_steps(heavy, camera, config, g_image, 3)
+  for i, (got, want) in enumerate(zip(g_tr, g_full)):
+    check_grads(f"heavy, step {i}", got, want)
+  print(f"[8 heavy] ms_heavy's scene (random_3d_gaussians, scale_factor 4, alpha "
+        f"0.75-0.99) {args.n} @{width}x{height}; {card}: "
+        f"{int(mapping_h.total_overlaps)} overlaps in {k_h} slots, "
+        f"{kept_h} kept ({kept_h / k_h:.4f}); saturated pixels "
+        f"{float((full_h.image_weight >= config.saturate_threshold).double().mean()):.4f}; "
+        f"render and gradients equal to the untruncated ones bit for bit, "
+        f"raster_overflow False; three forward + backward steps through "
+        f"TruncationGuard(config, margin_chunks=0), {guard_h.reprobes} "
+        f"reprobes: {', '.join(f'{t:.3f}' for t in t_tr)} ms (the first "
+        f"includes the probe); untruncated "
+        f"{', '.join(f'{t:.3f}' for t in t_full)} ms")
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   parser.add_argument("--n", type=int, default=1_000_000,
@@ -297,11 +630,6 @@ def main() -> int:
     img, w = forward.rasterize_tiles_plain(points, features, mapping, config,
                                            tile_ids=tile_ids)
     return torch.cat([img, w[:, None]], 1)
-
-  def bound_line(b, ms):
-    """The kernel's bound on this frame beside its measured time."""
-    return (f"bound {b['ms']:.4f} ms ({b['bound_by']}: {b['ops'] / 1e9:.3f} "
-            f"GFLOP, {b['bytes'] / 1e6:.1f} MB), share {b['ms'] / ms:.3f}")
 
   # ---- phase 1: build --------------------------------------------------
   print(f"[1 build] {card}; torch {torch.__version__}, CUDA "
@@ -425,6 +753,52 @@ def main() -> int:
         print(f"    bitwise identical on a second run; kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms; {bound_line(b, k_ms)}")
 
+    # ---- phase 2d: the forward's per-tile saturation front against plain --
+    bins2 = mapping2.tile_ranges[:, 1] - mapping2.tile_ranges[:, 0]
+    live2 = int((bins2 > 0).sum())
+    print(f"[2d tile front vs plain] phase 2's scene, blending, {live2} "
+          f"non-empty tiles of {tiles2}; {card}")
+    for antialias in (False, True):
+      cfg = config2.replace(antialias=antialias)
+
+      def front_plain():
+        return forward.rasterize_tiles_plain(points2, features2, mapping2, cfg,
+                                             front_image_size=size2)
+
+      *want_tiled, want_front = front_plain()
+      want_tiled = torch.cat([want_tiled[0], want_tiled[1][:, None]], 1)
+      for vis in (False, True):
+        label = (f"{'antialias' if antialias else 'conic'}"
+                 f"{' with visibility' if vis else ''}")
+
+        def front_kernel():
+          return forward.rasterize_forward(points2, features2, mapping2, size2,
+                                           cfg, compute_visibility=vis,
+                                           tile_front=True)
+
+        image, weight, *_, front = front_kernel()
+        torch.cuda.synchronize()
+        assert torch.equal(front, front_kernel()[-1]), f"{label}: two runs differ"
+        differ = front != want_front
+        got_tiled = tiles.image_to_tiles(torch.cat([image, weight[..., None]], -1),
+                                         mapping2.tile_shape, cfg.tile_size)
+        image_differs = (got_tiled != want_tiled).flatten(1).any(1)
+        n_differ = int(differ.sum())
+        print(f"  {label}: {n_differ} tiles' fronts differ from plain (limit "
+              f"{0.005 * live2:.1f}, 0.5% of the non-empty tiles), "
+              f"{int((front > 0).sum())} tiles saturate; bitwise identical on a "
+              f"second run")
+        assert n_differ <= 0.005 * live2, f"{label}: {n_differ} fronts differ"
+        assert bool(image_differs[differ].all()), (
+            f"{label}: a front differs where the two images agree")
+        k_ms = cuda_ms(front_kernel, reps=20)
+        k0_ms = cuda_ms(lambda: forward.rasterize_forward(
+            points2, features2, mapping2, size2, cfg, compute_visibility=vis),
+            reps=20)
+        p_ms = cuda_ms(front_plain, reps=3)
+        print(f"    kernel with tile_front {k_ms:.4f} ms, without {k0_ms:.4f} "
+              f"ms, plain {p_ms:.4f} ms")
+
     # ---- phase 3: the slice at full size -------------------------------
     width, height = args.size
     scene, camera = bench_scene(args.n, (width, height), dev)
@@ -483,12 +857,16 @@ def main() -> int:
           f"{proj_ms:.3f} ms, mapper {map_ms:.3f} ms, raster {raster_ms:.3f} ms")
     fwd_ms = cuda_ms(lambda: forward.rasterize_forward(
         points, features, mapping, (width, height), config), reps=10)
+    fwd_front_ms = cuda_ms(lambda: forward.rasterize_forward(
+        points, features, mapping, (width, height), config, tile_front=True),
+        reps=10)
     fwd_plain_ms = cuda_ms(lambda: plain_image(points, features, mapping,
                                                (width, height), config), reps=1)
     work3 = bounds.raster_work(points, mapping, config, (width, height))
     fwd_bound = bounds.forward_bound(work3, args.n, 3, total, n_tiles,
                                      (width, height), config.antialias)
-    print(f"  raster over the whole frame (CUDA events): kernel {fwd_ms:.4f} ms, "
+    print(f"  raster over the whole frame (CUDA events): kernel {fwd_ms:.4f} ms "
+          f"({fwd_front_ms:.4f} ms with tile_front), "
           f"plain {fwd_plain_ms:.4f} ms; {bound_line(fwd_bound, fwd_ms)}; "
           f"{work3['evaluated']} (pixel, slot) pairs before the pixels stop, "
           f"{work3['boxed']} inside their threshold boxes, {work3['active']} "
@@ -757,6 +1135,10 @@ def main() -> int:
   print(f"  {params2d.num_points} points, every optimizer state row count "
         f"equal to it, finite parameters; PSNR {history[0]['psnr']:.3f} after "
         f"the first epoch, {history[-1]['psnr']:.3f} after the last")
+  del params2d, image2d
+
+  # ---- phase 8: the trained-scene path at full size ------------------------
+  trained_scene(args, dev, card, kernels, camera, g_image)
 
   # no PyTorch call computes the forward or the backward blend
   measured = {

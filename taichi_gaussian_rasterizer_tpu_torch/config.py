@@ -3,14 +3,19 @@
 Same frozen dataclass, same fields and defaults, so a config written for
 the JAX package means the same thing here. Fields that exist only to
 shape the TPU kernels or XLA's static shapes are kept, so that configs
-carry over unchanged, and have no effect in this package:
+carry over unchanged; some of them have no effect in this package:
 
 * ``points_per_chunk`` -- the TPU kernels stage this many gaussians per
-  VMEM chunk. The CUDA raster kernels stage one batch of
-  ``tile_size**2`` gaussians per thread block instead.
+  VMEM chunk; the CUDA raster kernels stage their own batches. Here it
+  sets only the granularity of saturation-front truncation:
+  `probe_visit_chunks` and `truncate_mapping` count each tile's kept
+  prefix in chunks of this many slots, as the JAX package does.
 * ``saturation_early_exit`` -- the CUDA kernels always stop a tile once
   every pixel has saturated; the blend gates make that exit exact, so
-  the output is the same either way.
+  the output is the same either way. False refuses saturation-front
+  truncation (`probe_visit_chunks`, `visit_chunks`, `TruncationGuard`
+  raise ValueError), as in the JAX package: truncation is exact only
+  where the early exit is.
 * ``exact_features`` -- the port never packs features as bf16 pairs;
   features are always blended at full precision.
 * ``exact_slot_gradients`` -- the port never packs the backward's slot
@@ -65,9 +70,11 @@ class RasterConfig:
   # cap on per-gaussian tile footprint: larger footprints are clamped and
   # flag TileMapping.overflow
   max_tile_span: int = 16
-  # no effect in this package (see the module docstring)
+  # saturation-front truncation's granularity, and whether it is allowed
+  # (see the module docstring)
   points_per_chunk: int = 128
   saturation_early_exit: bool = True
+  # no effect in this package (see the module docstring)
   exact_slot_gradients: bool = False
   deterministic: bool = False
   exact_features: bool = False

@@ -55,6 +55,15 @@
 // never reaches (after its early exit, past the real overlaps) keep the
 // zeros the caller filled in.
 //
+// The optional per-tile saturation front (tile_front, the counterpart of
+// the TPU kernel's signed `satiters`) is what saturation-front truncation
+// reads: +(s + 1) when every in-image pixel of the tile stopped, s the
+// largest tile-local slot index at which one of them closed its gate;
+// -(bin length) when some pixel ran out of the bin unsaturated; 0 for an
+// empty bin. Each thread keeps the slot where its last pixel stopped, and
+// the block takes their maximum with a shared-memory atomicMax, which does
+// not depend on order. It changes no other output.
+//
 // C interface (bound with ctypes; pointers are device pointers):
 //   int tgr_raster_forward(points (N,7) f32, features (N,F) f32,
 //                          overlap_to_point (K,) i32, tile_ranges (T,2) i32,
@@ -64,7 +73,7 @@
 //                          saturate_threshold, antialias, blending,
 //                          image (H,W,F) f32 out, weight (H,W) f32 out,
 //                          visibility (K,) f32 out zero-filled or null,
-//                          stream)
+//                          tile_front (T,) i32 out or null, stream)
 // returns the cudaError_t of the launch (0 on success). A non-null
 // visibility needs tile_size**2 to be a multiple of 32 (whole warps).
 
@@ -89,10 +98,12 @@ raster_forward_kernel(const float* __restrict__ points,
                       float clamp_max_alpha, float saturate_threshold,
                       float* __restrict__ image,
                       float* __restrict__ weight,
-                      float* __restrict__ visibility) {
+                      float* __restrict__ visibility,
+                      int* __restrict__ tile_front) {
   constexpr unsigned kAllDone = (1u << kPPT) - 1;
   extern __shared__ float smem[];
   __shared__ int s_slot;
+  __shared__ int s_front;   // the tile's largest stop slot (tile_front)
   const int threads = blockDim.x;
   float* s_pt = smem;                             // [kBatch][kStageStride]
   float2* s_ext = reinterpret_cast<float2*>(s_pt + kStageStride * kBatch);  // [kBatch]
@@ -107,6 +118,7 @@ raster_forward_kernel(const float* __restrict__ points,
   // quantile mode emits the point whose accumulated weight crosses c
   const float c = 1.0f - saturate_threshold;
   const float stop = kBlending ? saturate_threshold : c;
+  if (tid == 0) s_front = -1;   // next_tile's barrier publishes it
 
   for (;;) {
     const int tile = next_tile(tile_counter, tile_order, num_tiles, &s_slot);
@@ -120,6 +132,8 @@ raster_forward_kernel(const float* __restrict__ points,
     float T[kPPT], acc[kPPT][kCap];
     float alpha_acc[kPPT];  // sum of weights, or sum of a * T in quantile mode
     unsigned done = 0;
+    int last_stop = -1;     // tile-local slot where a pixel of the thread stopped
+    bool saturated = false; // every pixel of the tile stopped
 #pragma unroll
     for (int k = 0; k < kPPT; ++k) {
       T[k] = 1.0f;
@@ -183,7 +197,10 @@ raster_forward_kernel(const float* __restrict__ points,
           vis = __fadd_rn(vis, w);
           T[k] = transmit(T[k], a);
           // T never grows, so once the gate is closed it stays closed
-          if (stopped(T[k], stop)) done |= 1u << k;
+          if (stopped(T[k], stop)) {
+            done |= 1u << k;
+            last_stop = base + j - start;   // slots run in increasing order
+          }
         }
         return vis;
       };
@@ -230,7 +247,19 @@ raster_forward_kernel(const float* __restrict__ points,
         }
       }
       // slots past the point where every pixel stopped keep their zeros
-      if (!alive) break;
+      if (!alive) {
+        saturated = true;
+        break;
+      }
+    }
+
+    if (tile_front != nullptr) {
+      if (last_stop >= 0) atomicMax(&s_front, last_stop);
+      __syncthreads();
+      if (tid == 0) {
+        tile_front[tile] = start == end ? 0 : (saturated ? s_front + 1 : start - end);
+        s_front = -1;
+      }
     }
 
 #pragma unroll
@@ -257,7 +286,7 @@ cudaError_t launch(const float* points, const float* features,
                    int num_features, float alpha_threshold,
                    float clamp_max_alpha, float saturate_threshold,
                    float* image, float* weight, float* visibility,
-                   cudaStream_t stream) {
+                   int* tile_front, cudaStream_t stream) {
   auto kernel =
       raster_forward_kernel<kAntialias, kBlending, kVisibility, kCap, kPPT>;
   const int threads = block_threads(tile_size, kPPT);
@@ -271,14 +300,14 @@ cudaError_t launch(const float* points, const float* features,
       points, features, overlap_to_point, tile_ranges, tile_order, tile_counter,
       num_tiles, tiles_x, tile_size, width, height, num_features,
       alpha_threshold, clamp_max_alpha, saturate_threshold, image, weight,
-      visibility);
+      visibility, tile_front);
   return cudaGetLastError();
 }
 
 using LaunchFn = cudaError_t (*)(const float*, const float*, const int*,
                                  const int*, const int*, int*, int, int, int,
                                  int, int, int, float, float, float, float*,
-                                 float*, float*, cudaStream_t);
+                                 float*, float*, int*, cudaStream_t);
 
 // the template instances, seven for each (antialias, blending), indexed
 // by (antialias * 2 + blending) * 7 + instance: 0 and 1 without
@@ -308,7 +337,7 @@ extern "C" int tgr_raster_forward(
     int num_tiles, int tiles_x, int tile_size, int width, int height,
     int num_features, float alpha_threshold, float clamp_max_alpha,
     float saturate_threshold, int antialias, int blending, float* image,
-    float* weight, float* visibility, void* stream) {
+    float* weight, float* visibility, int* tile_front, void* stream) {
   if (num_features < 1 || num_features > kMaxFeatures) return cudaErrorInvalidValue;
   if (tile_size < 1 || tile_size * tile_size > 1024) return cudaErrorInvalidValue;
   // the visibility sums shuffle over whole warps
@@ -329,5 +358,5 @@ extern "C" int tgr_raster_forward(
       points, features, overlap_to_point, tile_ranges, tile_order,
       tile_counter, num_tiles, tiles_x, tile_size, width, height,
       num_features, alpha_threshold, clamp_max_alpha, saturate_threshold,
-      image, weight, visibility, static_cast<cudaStream_t>(stream));
+      image, weight, visibility, tile_front, static_cast<cudaStream_t>(stream));
 }

@@ -11,10 +11,12 @@ the gradients and a rendering whose per-point heuristics and visibility
 are filled in from the backward pass. With `compute_visibility` in the
 config, a plain render fills `point_visibility` from the forward pass.
 
-`capacity`, `emit_tails`, `reduce_capacity` and
-`visit_chunks`/`visit_capacity` are XLA static-shape knobs and are not
-part of these signatures; saturation-front truncation is not ported yet
-(ROADMAP queue 1 item 11).
+`visit_chunks`/`visit_capacity` render with saturation-front truncation
+(`ops.raster.function.probe_visit_chunks`), and `Rendering.raster_overflow`
+then says whether it cropped a tile; the median-depth pass is non-blending
+and takes the untruncated mapping. `capacity`, `emit_tails` and
+`reduce_capacity` are XLA static-shape knobs and are not part of these
+signatures.
 """
 
 from dataclasses import dataclass, fields, replace
@@ -48,6 +50,8 @@ class Rendering:
   depth: Optional[torch.Tensor] = None              # (H, W)
   depth_var: Optional[torch.Tensor] = None          # (H, W)
   median_depth: Optional[torch.Tensor] = None       # (H, W)
+  raster_overflow: Optional[torch.Tensor] = None    # () bool with visit_chunks:
+                                                    # truncation cropped a tile
 
   @property
   def ndc_depth(self):
@@ -139,8 +143,12 @@ def render_projected(in_view: torch.Tensor, gaussians2d: torch.Tensor,
                      render_median_depth: bool = False,
                      use_ndc_depth: bool = False,
                      heuristic_sink: Optional[torch.Tensor] = None,
-                     visibility_sink: Optional[torch.Tensor] = None) -> Rendering:
-  """Rasterize already-projected gaussians."""
+                     visibility_sink: Optional[torch.Tensor] = None,
+                     visit_chunks: Optional[torch.Tensor] = None,
+                     visit_capacity: Optional[int] = None) -> Rendering:
+  """Rasterize already-projected gaussians. visit_chunks / visit_capacity
+  as in `rasterize_with_tiles`: probe them on the same points and
+  mapping (`probe_visit_chunks`)."""
   near, far = camera_params.near_plane, camera_params.far_plane
   ndc_depths = lib.ndc_depth(torch.clamp(depths, min=near), near, far)
 
@@ -154,7 +162,8 @@ def render_projected(in_view: torch.Tensor, gaussians2d: torch.Tensor,
 
   raster = rasterize_with_tiles(
       gaussians2d, features, mapping, camera_params.image_size, config,
-      heuristic_sink=heuristic_sink, visibility_sink=visibility_sink)
+      heuristic_sink=heuristic_sink, visibility_sink=visibility_sink,
+      visit_chunks=visit_chunks, visit_capacity=visit_capacity)
 
   median_depth = None
   if render_median_depth:
@@ -187,7 +196,8 @@ def render_projected(in_view: torch.Tensor, gaussians2d: torch.Tensor,
       point_visibility=raster.visibility,
       depth=img_depth,
       depth_var=img_depth_var,
-      median_depth=median_depth)
+      median_depth=median_depth,
+      raster_overflow=raster.bin_overflow)
 
 
 def render_gaussians(gaussians: Gaussians3D,
@@ -198,12 +208,15 @@ def render_gaussians(gaussians: Gaussians3D,
                      use_depth16: bool = False,
                      render_median_depth: bool = False,
                      heuristic_sink: Optional[torch.Tensor] = None,
-                     visibility_sink: Optional[torch.Tensor] = None) -> Rendering:
+                     visibility_sink: Optional[torch.Tensor] = None,
+                     visit_chunks: Optional[torch.Tensor] = None,
+                     visit_capacity: Optional[int] = None) -> Rendering:
   """Render 3D gaussians.
 
   With use_sh=True the features are (N, 3, (d+1)^2) SH coefficients,
   shaded at every point with detached positions; otherwise raw (N, C)
-  features.
+  features. visit_chunks / visit_capacity render with saturation-front
+  truncation (`render_projected`).
   """
   gaussians2d, depths, in_view = project_to_image(
       gaussians, camera_params, config)
@@ -221,7 +234,8 @@ def render_gaussians(gaussians: Gaussians3D,
       in_view, gaussians2d, features, depths, camera_params, config,
       render_depth=render_depth, use_depth16=use_depth16,
       render_median_depth=render_median_depth,
-      heuristic_sink=heuristic_sink, visibility_sink=visibility_sink)
+      heuristic_sink=heuristic_sink, visibility_sink=visibility_sink,
+      visit_chunks=visit_chunks, visit_capacity=visit_capacity)
 
 
 def render_with_heuristics(loss_fn: Callable[[Rendering], torch.Tensor],

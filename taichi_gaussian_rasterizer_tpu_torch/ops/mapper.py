@@ -44,6 +44,11 @@ def cdiv(a: int, b: int) -> int:
   return -(-a // b)
 
 
+def pad_to_tile(image_size: Tuple[int, int], tile_size: int) -> Tuple[int, int]:
+  """Round an image size up to whole tiles."""
+  return tuple(cdiv(int(x), tile_size) * tile_size for x in image_size)
+
+
 def num_tiles(image_size: Tuple[int, int], tile_size: int) -> Tuple[int, int]:
   """(tiles across, tiles down)."""
   w, h = image_size
@@ -74,13 +79,21 @@ class TileMapping:
                                   # and was clamped
   point_sentinel: int             # == N
   point_offsets: torch.Tensor     # (N+1,) int32 segment starts in point-
-                                  # sorted slot order, clamped to K
+                                  # sorted slot order
 
   @functools.cached_property
   def tile_order(self) -> torch.Tensor:
     """The CUDA raster kernels' tile queue order (`longest_first`),
     computed once per mapping and shared by its launches."""
     return longest_first(self.tile_ranges)
+
+
+def point_offsets(overlap_to_point: torch.Tensor, n: int) -> torch.Tensor:
+  """(N+1,) int32 starts of each point's segment in point-sorted slot
+  order: the per-point count of real overlaps (the sentinel N dropped),
+  exclusively scanned."""
+  counts = torch.bincount(overlap_to_point.to(torch.int64), minlength=n + 1)[:n]
+  return torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
 
 
 def longest_first(tile_ranges: torch.Tensor) -> torch.Tensor:
@@ -231,12 +244,6 @@ def map_to_tiles(points: torch.Tensor, depth: torch.Tensor,
       sorted_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=device))
   tile_ranges = torch.stack([bounds[:-1], bounds[1:]], dim=1).to(torch.int32)
 
-  # per-point count of real overlaps (the sentinel bin N is dropped), then
-  # an exclusive scan; the clamp mirrors the JAX mapper's and never binds
-  counts = torch.bincount(overlap_to_point.to(torch.int64), minlength=n + 1)[:n]
-  point_offsets = torch.cat(
-      [counts.new_zeros(1), torch.cumsum(counts, 0)]).clamp(max=n_cand)
-
   return TileMapping(
       overlap_to_point=overlap_to_point,
       overlap_to_tile=sorted_tile,
@@ -245,4 +252,4 @@ def map_to_tiles(points: torch.Tensor, depth: torch.Tensor,
       total_overlaps=bounds[-1],
       overflow=fp["clipped"],
       point_sentinel=n,
-      point_offsets=point_offsets.to(torch.int32))
+      point_offsets=point_offsets(overlap_to_point, n))

@@ -1,5 +1,5 @@
-from .function import (RasterOut, probe_visit_chunks, rasterize,
-                       rasterize_with_tiles, reduce_slots_by_point,
+from .function import (RasterOut, TruncationGuard, probe_visit_chunks,
+                       rasterize, rasterize_with_tiles, reduce_slots_by_point,
                        truncate_mapping)
 from .forward import rasterize_forward, rasterize_tiles_plain
 from .backward import live_grad_rows, rasterize_backward, raster_backward_plain
@@ -12,6 +12,7 @@ __all__ = [
     "rasterize",
     "rasterize_with_tiles",
     "truncate_mapping",
+    "TruncationGuard",
     "rasterize_forward",
     "rasterize_tiles_plain",
     "reduce_slots_by_point",

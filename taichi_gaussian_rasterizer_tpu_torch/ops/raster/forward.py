@@ -10,6 +10,15 @@ With `compute_visibility` both also return the per-slot visibility (K,):
 each overlap slot's weight summed over its tile's pixels inside the image
 (the JAX kernel also counts a partial edge tile's pixels past the image),
 so that the per-point sums add up to the weight image.
+With `tile_front` both also return the per-tile saturation front (T,)
+int32 that saturation-front truncation reads (`function.py`): +(s + 1)
+when every pixel of the tile inside the image has stopped, s the largest
+tile-local slot index at which one of them closed its saturation gate;
+-(bin length) when some pixel ran out of its bin unsaturated; 0 for an
+empty bin. It is the counterpart of the JAX kernel's signed `satiters`
+counted in slots rather than chunks. The JAX kernel also waits for a
+partial edge tile's pixels past the image, so there the port's front can
+be shorter than JAX's, never longer.
 
 Blend semantics are the JAX package's (`blend.chunk_weights_raw`), which
 differ from the Taichi reference's forward:
@@ -42,7 +51,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 RASTER_FORWARD = CudaKernel(
     "raster_forward.cu", "tgr_raster_forward",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _I, _P, _P, _P, _P])
+     ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _I, _P, _P, _P, _P, _P])
 
 # elements of one (tiles, pixels, points) field the plain version
 # materializes at a time; bounds its memory on large frames
@@ -84,7 +93,8 @@ def _pdf_alpha(pts: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
 def rasterize_tiles_plain(points: torch.Tensor, features: torch.Tensor,
                           mapping: TileMapping, config: RasterConfig,
                           tile_ids: Optional[Sequence[int]] = None,
-                          visibility_image_size: Optional[Tuple[int, int]] = None):
+                          visibility_image_size: Optional[Tuple[int, int]] = None,
+                          front_image_size: Optional[Tuple[int, int]] = None):
   """Plain PyTorch forward over whole tile bins.
 
   Each bin is gathered into a (tiles, pixels, points) field; the
@@ -95,7 +105,11 @@ def rasterize_tiles_plain(points: torch.Tensor, features: torch.Tensor,
   tiles, in `tile_ids` order. With `visibility_image_size` (width,
   height) it also returns the per-slot visibility (K,): each slot's weight
   summed over the pixels of its tile inside that image (0 for slots of
-  unselected tiles and past the real overlaps).
+  unselected tiles and past the real overlaps). With `front_image_size`
+  it also returns, last, the selected tiles' saturation fronts (T',) int32
+  (module docstring) over the pixels inside that image: a pixel stops at
+  the first slot after which its accumulated weight 1 - T has reached
+  the stop threshold.
   """
   dtype, device = points.dtype, points.device
   f = features.shape[1]
@@ -129,8 +143,13 @@ def rasterize_tiles_plain(points: torch.Tensor, features: torch.Tensor,
     inside_t = image_to_tiles(points.new_ones(h_img, w_img, 1),
                               mapping.tile_shape, ts)[:, 0]       # (T, P)
     vis = points.new_zeros(k)
+  if front_image_size is not None:
+    w_img, h_img = front_image_size
+    front_inside = image_to_tiles(points.new_ones(h_img, w_img, 1),
+                                  mapping.tile_shape, ts)[:, 0] > 0  # (T, P)
+  stop = config.saturate_threshold if config.use_alpha_blending else c
 
-  images, weights = [], []
+  images, weights, fronts = [], [], []
   step = max(1, _PLAIN_BATCH_ELEMENTS // (p * mb))
   for b0 in range(0, len(tiles), step):
     t = tiles[b0:b0 + step]
@@ -158,12 +177,33 @@ def rasterize_tiles_plain(points: torch.Tensor, features: torch.Tensor,
     weights.append(alpha if config.use_alpha_blending else (alpha > 0).to(dtype))
     if vis is not None:
       vis[slot[live]] = torch.einsum("bp,bpm->bm", inside_t[t], w)[live]
+    if front_image_size is not None:
+      fronts.append(_tile_fronts(t_incl, stop, front_inside[t],
+                                 counts[b0:b0 + step]))
 
   if not images:
     image, weight = points.new_zeros(0, f, p), points.new_zeros(0, p)
   else:
     image, weight = torch.cat(images), torch.cat(weights)
-  return (image, weight) if vis is None else (image, weight, vis)
+  out = (image, weight) + (() if vis is None else (vis,))
+  if front_image_size is not None:
+    out += (torch.cat(fronts) if fronts
+            else torch.zeros(0, dtype=torch.int32, device=device),)
+  return out
+
+
+def _tile_fronts(t_incl: torch.Tensor, stop: float, inside: torch.Tensor,
+                 counts: torch.Tensor) -> torch.Tensor:
+  """Saturation fronts (B,) int32 of a batch of tiles from the inclusive
+  transmittance (B, P, M), the in-image pixel mask (B, P) and the bin
+  lengths (B,)."""
+  closed = ~((1 - t_incl) < stop)                 # gate closed after the slot
+  has_stop = closed.any(-1)
+  first = closed.to(torch.int32).argmax(-1)       # first slot that closed it
+  saturated = (has_stop | ~inside).all(-1)
+  last = torch.where(inside & has_stop, first, -1).amax(-1)
+  front = torch.where(saturated, last + 1, -counts)
+  return torch.where(counts > 0, front, 0).to(torch.int32)
 
 
 def _check_cuda_inputs(points, features, mapping):
@@ -188,10 +228,12 @@ def _check_cuda_inputs(points, features, mapping):
 
 def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
                          mapping: TileMapping, image_size: Tuple[int, int],
-                         config: RasterConfig, compute_visibility: bool = False):
+                         config: RasterConfig, compute_visibility: bool = False,
+                         tile_front: bool = False):
   """Launch the CUDA kernel: float32 only, (N, F) features with F <= 16,
   tile_size**2 <= 1024 (a multiple of 32 with compute_visibility).
-  Returns (image (H, W, F), weight (H, W)) [+ per-slot visibility (K,)]."""
+  Returns (image (H, W, F), weight (H, W)) [+ per-slot visibility (K,)]
+  [+ saturation front (T,)]."""
   _check_cuda_inputs(points, features, mapping)
   ts = config.tile_size
   if ts * ts > 1024:
@@ -206,6 +248,8 @@ def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
   weight = torch.empty((h, w), dtype=torch.float32, device=points.device)
   vis = (torch.zeros(mapping.overlap_to_point.shape, dtype=torch.float32,
                      device=points.device) if compute_visibility else None)
+  front = (torch.empty(th * tw, dtype=torch.int32, device=points.device)
+           if tile_front else None)
   counter = torch.empty(1, dtype=torch.int32, device=points.device)
   RASTER_FORWARD.launch(
       points.data_ptr(), features.data_ptr(),
@@ -215,26 +259,33 @@ def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
       config.saturate_threshold, int(config.antialias),
       int(config.use_alpha_blending), image.data_ptr(), weight.data_ptr(),
       None if vis is None else vis.data_ptr(),
+      None if front is None else front.data_ptr(),
       torch.cuda.current_stream(points.device).cuda_stream)
-  return (image, weight) if vis is None else (image, weight, vis)
+  return ((image, weight) + (() if vis is None else (vis,))
+          + (() if front is None else (front,)))
 
 
 def rasterize_forward(points: torch.Tensor, features: torch.Tensor,
                       mapping: TileMapping, image_size: Tuple[int, int],
-                      config: RasterConfig, compute_visibility: bool = False):
-  """(image (H, W, F), weight (H, W)), and with compute_visibility the
-  per-slot visibility (K,) as a third value: the CUDA kernel for CUDA
+                      config: RasterConfig, compute_visibility: bool = False,
+                      tile_front: bool = False):
+  """(image (H, W, F), weight (H, W)), then with compute_visibility the
+  per-slot visibility (K,), then with tile_front the per-tile saturation
+  front (T,) int32 (blending configs only): the CUDA kernel for CUDA
   tensors, the plain version for CPU tensors. A non-float32 CUDA input
   raises."""
+  if tile_front and not config.use_alpha_blending:
+    raise ValueError("a non-blending (quantile) config has no saturation front")
   if points.is_cuda:
     return rasterize_tiles_cuda(points, features, mapping, image_size, config,
-                                compute_visibility)
+                                compute_visibility, tile_front)
   if points.device.type != "cpu":
     raise ValueError(f"no forward rasterizer for device {points.device}")
-  image, weight, *vis = rasterize_tiles_plain(
+  image, weight, *extra = rasterize_tiles_plain(
       points, features, mapping, config,
-      visibility_image_size=image_size if compute_visibility else None)
+      visibility_image_size=image_size if compute_visibility else None,
+      front_image_size=image_size if tile_front else None)
   ts = config.tile_size
   return (tiles_to_image(image, mapping.tile_shape, ts, image_size),
           tiles_to_image(weight[:, None, :], mapping.tile_shape, ts, image_size)[..., 0],
-          *vis)
+          *extra)

@@ -12,8 +12,9 @@ version.
 Two options of the JAX function are not carried over: uint32 values read
 as bf16 pairs (transport packing for the TPU's sort payloads; the port's
 slot rows are always full precision) and `block_offsets` (segment bounds
-recovered from the keys, which only saturation-front truncation needs,
-ROADMAP queue 1 item 11).
+recovered from the keys, which the JAX package's truncated mapping needs:
+the port's `truncate_mapping` recomputes `point_offsets` for the kept
+slots instead).
 """
 
 import ctypes

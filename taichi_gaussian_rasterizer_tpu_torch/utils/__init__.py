@@ -1,3 +1,3 @@
-from . import random_data
+from . import benchmark, checkpoint, morton, random_data, runtime
 
-__all__ = ["random_data"]
+__all__ = ["benchmark", "checkpoint", "morton", "random_data", "runtime"]

@@ -25,6 +25,9 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# set by runtime.debug_mode: synchronise after each launch, so that a
+# fault inside a kernel raises at its launch
+SYNC_AFTER_LAUNCH = False
 
 
 def find_nvcc() -> str:
@@ -72,7 +75,9 @@ class CudaKernel:
   """One C entry point of a CUDA source, built and loaded at first use.
 
   The entry point returns the `cudaError_t` of its launch; `launch`
-  raises on a non-zero status and otherwise adds one to `launch_count`.
+  raises on a non-zero status and otherwise adds one to `launch_count`
+  (and, under `runtime.debug_mode`, synchronises, which raises on a fault
+  during the run).
   The source must also export `const char* tgr_error_string(int)`.
   """
 
@@ -107,6 +112,9 @@ class CudaKernel:
       raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {status} "
                          f"({self._error_string(status).decode()})")
     self.launch_count += 1
+    if SYNC_AFTER_LAUNCH:
+      import torch
+      torch.cuda.synchronize()
 
 
 def load_all(kernels: Sequence[CudaKernel]) -> None:

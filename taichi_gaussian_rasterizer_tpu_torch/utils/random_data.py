@@ -1,6 +1,6 @@
 """Random scenes for tests and benchmarks (port of
 `taichi_gaussian_rasterizer_tpu.utils.random_data`: `random_camera`,
-`random_3d_gaussians` and `random_2d_gaussians`).
+`random_3d_gaussians`, `trained_like_gaussians` and `random_2d_gaussians`).
 
 Driven by an explicit `torch.Generator`; tensors are made on the
 generator's device. The same seed gives different numbers than the JAX
@@ -106,6 +106,61 @@ def random_3d_gaussians(generator: torch.Generator, n: int,
       rotation=rotation,
       alpha_logit=lib.inverse_sigmoid(alpha)[:, None],
       feature=feature)
+
+
+def trained_like_gaussians(generator: torch.Generator, n: int,
+                           camera_params: CameraParams,
+                           surface_frac: float = 0.8,
+                           dtype=torch.float32) -> Gaussians3D:
+  """A synthetic stand-in for a trained 3DGS checkpoint, with the
+  occupancy that drives the rasterizer's cost on trained scenes (the JAX
+  package's recipe, drawn from the generator):
+
+  * 60% of the points in 48 clusters (spread 4% of the image), the rest
+    uniform over the image, so that tiles hold heavy-tailed point counts;
+  * the first `surface_frac` of them at near depths (ndc^1.5 * 0.6 +
+    0.05), the rest a background at far depths (0.7 + 0.3 ndc);
+  * log-normal sizes (sigma 0.8; surface x1.1, background x3) with
+    per-axis anisotropy (log-normal, sigma 0.5);
+  * mostly opaque alphas, logit ~ N(1.8, 1.6) (median ~0.86).
+
+  Most pixels of such a frame saturate, as on a trained scene.
+  """
+  w, h = camera_params.image_size
+  device = generator.device
+  size = torch.tensor([w, h], dtype=dtype, device=device)
+  n_surf = int(n * surface_frac)
+  n_clusters = 48
+  centers = _rand(generator, n_clusters, 2, dtype=dtype) * size
+  cid = torch.randint(0, n_clusters, (n,), generator=generator, device=device)
+  uv_cluster = centers[cid] + _randn(generator, n, 2, dtype=dtype) * (size * 0.04)
+  uv_uniform = _rand(generator, n, 2, dtype=dtype) * size
+  in_cluster = _rand(generator, n, dtype=dtype) < 0.6
+  uv = torch.where(in_cluster[:, None], uv_cluster, uv_uniform)
+  uv = torch.minimum(torch.clamp(uv, min=0.0), size - 1.0)
+
+  is_surf = torch.arange(n, device=device) < n_surf
+  ndc = _rand(generator, n, dtype=dtype)
+  ndc = torch.where(is_surf, ndc ** 1.5 * 0.6 + 0.05, 0.7 + 0.3 * ndc)
+  depth = lib.inverse_ndc_depth(ndc, camera_params.near_plane,
+                                camera_params.far_plane)
+  position = unproject_points(uv, depth[:, None], camera_params)
+
+  fx = camera_params.projection[0]
+  base = (w / math.sqrt(max(n, 1))) * (depth / fx)
+  size_mult = torch.exp(_randn(generator, n, dtype=dtype) * 0.8 + torch.where(
+      is_surf, math.log(1.1), math.log(3.0)))
+  aniso = torch.exp(_randn(generator, n, 3, dtype=dtype) * 0.5)
+  scaling = base[:, None] * size_mult[:, None] * aniso
+
+  rotation = lib.safe_normalize(_randn(generator, n, 4, dtype=dtype))
+  alpha_logit = _randn(generator, n, dtype=dtype) * 1.6 + 1.8
+  return Gaussians3D(
+      position=position,
+      log_scaling=torch.log(scaling),
+      rotation=rotation,
+      alpha_logit=alpha_logit[:, None],
+      feature=_rand(generator, n, 3, dtype=dtype))
 
 
 def random_2d_gaussians(generator: torch.Generator, n: int,

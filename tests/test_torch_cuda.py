@@ -33,8 +33,8 @@ import torch
 from taichi_gaussian_rasterizer_tpu_torch import RasterConfig
 from taichi_gaussian_rasterizer_tpu_torch.ops.mapper import longest_first, map_to_tiles
 from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
-    backward, forward, rasterize_with_tiles, reduce, reduce_slots_by_point,
-    tiles)
+    backward, forward, probe_visit_chunks, rasterize_with_tiles, reduce,
+    reduce_slots_by_point, tiles)
 
 import torch_port_scenes as scenes
 
@@ -602,3 +602,59 @@ def test_threshold_box_keeps_every_pixel_above_threshold(
                         name, kernel)
   unboxed = outputs()
   assert all(torch.equal(a, b) for a, b in zip(boxed, unboxed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size", [8, 16, 32])
+def test_tile_front_and_truncation_on_card(cuda_device, tile_size):
+  """Kernel 1's per-tile saturation front against the plain version's,
+  in every instance with blending (conic and antialias, with and without
+  visibility): equal but on a few tiles where a gate flips between the
+  two roundings (at most 1% of the non-empty tiles), and bitwise the same
+  whatever the instance and on a second run. Then saturation-front
+  truncation at the kernel's fronts: no crop flagged, and the image, the
+  weight, the forward visibility and the gradients wrt points, features
+  and both sinks bitwise equal to the untruncated render's."""
+  points, depth, feats = scenes.points2d(70, 3000, (200, 120), sigma_range=(3.0, 10.0),
+                                         alpha_range=(0.75, 0.99))
+  pts, d, f = (scenes.to_torch(x, np.float32).to(cuda_device)
+               for x in (points, depth, feats))
+  size = (200, 120)
+  for antialias in (False, True):
+    config = RasterConfig(tile_size=tile_size, antialias=antialias)
+    mapping = map_to_tiles(pts, d, size, config)
+    bins = mapping.tile_ranges[:, 1] - mapping.tile_ranges[:, 0]
+    fronts = [forward.rasterize_forward(pts, f, mapping, size, config,
+                                        compute_visibility=vis,
+                                        tile_front=True)[-1]
+              for vis in (False, True, False)]
+    assert fronts[0].dtype == torch.int32 and fronts[0].shape == bins.shape
+    assert torch.equal(fronts[0], fronts[1]) and torch.equal(fronts[0], fronts[2])
+    plain = forward.rasterize_tiles_plain(pts, f, mapping, config,
+                                          front_image_size=size)[-1]
+    differ = int((fronts[0] != plain).sum())
+    assert differ <= max(1, int(0.01 * int((bins > 0).sum()))), differ
+    assert (fronts[0] > 0).sum() > (bins > 0).sum() // 2     # it saturates
+    assert (fronts[0][bins == 0] == 0).all()
+
+    cfg = config.replace(compute_point_heuristic=True, compute_visibility=True)
+    visit, cap = probe_visit_chunks(pts, mapping, cfg, margin_chunks=0)
+    assert cap < mapping.overlap_to_point.shape[0]
+
+    def run(**visit_args):
+      p, ff = pts.clone().requires_grad_(), f.clone().requires_grad_()
+      hs = torch.zeros(p.shape[0], 2, device=cuda_device, requires_grad=True)
+      vs = torch.zeros(p.shape[0], device=cuda_device, requires_grad=True)
+      out = rasterize_with_tiles(p, ff, mapping, size, cfg, **visit_args)
+      sink = rasterize_with_tiles(p, ff, mapping, size, cfg, heuristic_sink=hs,
+                                  visibility_sink=vs, **visit_args)
+      loss = (sink.image ** 2).sum() + sink.image_weight.sum()
+      return out, sink, torch.autograd.grad(loss, [p, ff, hs, vs])
+
+    full, full_sink, g_full = run()
+    tr, tr_sink, g_tr = run(visit_chunks=visit, visit_capacity=cap)
+    assert not bool(tr.bin_overflow) and not bool(tr_sink.bin_overflow)
+    for a, b in [(tr.image, full.image), (tr.image_weight, full.image_weight),
+                 (tr.visibility, full.visibility), (tr_sink.image, full_sink.image),
+                 *zip(g_tr, g_full)]:
+      assert torch.equal(a, b)

@@ -27,7 +27,6 @@ from taichi_gaussian_rasterizer_tpu_torch import RasterConfig
 from taichi_gaussian_rasterizer_tpu_torch.ops.mapper import map_to_tiles
 from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
     rasterize, rasterize_tiles_plain, rasterize_with_tiles, tiles)
-from taichi_gaussian_rasterizer_tpu_torch.ops.raster import function as raster_function
 
 import torch_port_scenes as scenes
 
@@ -126,13 +125,6 @@ def test_cpu_autograd_reaches_points_and_features():
   # d(sum image)/d(features)[:, c] is each point's total blend weight
   assert (f.grad >= 0).all() and f.grad.sum() > 0
   torch.testing.assert_close(f.grad, f.grad[:, :1].expand(-1, 3))
-
-
-@pytest.mark.parametrize("option", ["truncate_mapping", "probe_visit_chunks"])
-def test_unported_options_raise(option):
-  """Saturation-front truncation is not ported: it raises."""
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    getattr(raster_function, option)()
 
 
 @pytest.mark.parametrize("option", [
