@@ -10,7 +10,8 @@ the benchmark's size, 1M random gaussians at 2048x1536, the 2D
 image-fitting trainer, `fit`, growing to 1M gaussians on a 2048x1536
 target, and the trained-scene path: a 1M-gaussian trained-like scene
 loaded from a 3DGS `.ply`, served and trained with saturation-front
-truncation. Phases, each printing its lines:
+truncation, and the multi-GPU module `parallel/` on a one-rank NCCL
+world. Phases, each printing its lines:
 
 1. build -- nvcc builds csrc/raster_forward.cu, raster_backward.cu and
    segment_sum.cu for sm_90a, one process each, all at once; prints the
@@ -89,11 +90,35 @@ truncation. Phases, each printing its lines:
    finite non-zero gradients on all five tensors, equal bit for bit to the
    untruncated step's at every step; ms/step and peak device memory; the
    same steps through guards with margin_chunks 1, 4 and 16, their reprobes
-   and ms/step, held to the same gradients; and, one SGD step on, how many
-   truncated tiles the first frame's probe crops and why. Then
+   and ms/step, held to the same gradients; at each reprobe, how many
+   tiles the previous probe crops on the new frame and how many of those
+   it had kept whole; and, one SGD step on, how many truncated tiles the
+   first frame's probe crops and why. Then
    `bench.py`'s ms_heavy scene (`random_3d_gaussians`, scale_factor 4,
    alpha 0.75-0.99) at the same size: one render and three steps each
    way, held to the same equalities.
+9. the parallel path at full size -- a world of one rank, NCCL on this
+   card, from `make_mesh()` (`env://` set as torchrun sets it), on phase
+   3's scene: (a) three `dp_train_step` steps with two cameras a rank
+   (phase 3's and one moved 0.02 along x), seeded targets,
+   `RasterConfig(compute_visibility=True)` and `VisibilityAwareAdam`;
+   the first step equal bit for bit (loss, parameters, moments, running
+   visibility, total weight) to the same step written out without the
+   group; 2 forward, 2 backward and 4 segment-sum launches a step; ms/step.
+   (b) `pp_project` equal bit for bit to `project_to_image`. (c)
+   `tp_rasterize`'s stripe body (`tp_rasterize_stripe`) looped over 4
+   equal stripes (384 rows each) and over
+   `balance_stripe_rows(stripe_row_loads(...), 4)`, the footprint clip
+   flag asserted clear: the assembled image and weight within rtol 1e-4 /
+   atol 2e-5 of the full-frame render (the stripe shift re-rounds a
+   mean's offset inside its tile), with the max |diff|, the share of
+   bit-equal pixels, each stripe's rows, overlap load and ms. (d)
+   `tp_train_step`'s stripe body (`tp_train_stripe`) looped over the same
+   stripes with local_points = N and
+   `RasterConfig(compute_point_heuristic=True)`: zero dropped, the summed
+   loss within relative 1e-5 and the gradients, heuristics and visibility
+   within 1e-3 of their largest |value| of the full-frame training step.
+   The group is destroyed at the end of the phase.
 
 Truncation is exact, so phase 8 holds the truncated frame to the
 untruncated one bit for bit: it keeps each tile's bin up to where every
@@ -349,6 +374,39 @@ def check_grads(label, grads, want=None):
           f"|diff| {float((g - want[name]).abs().max()):.3e}")
 
 
+def diagnosed_guard(config, size, margin_chunks):
+  """A TruncationGuard that prints, at each reprobe, how many tiles the
+  previous probe's fronts crop on the new frame, and how many of those
+  that probe had kept whole (its visit reached the bin's end, so its
+  margin added nothing there). The diagnosis costs one forward launch a
+  reprobe."""
+  import taichi_gaussian_rasterizer_tpu_torch as tgr
+  from taichi_gaussian_rasterizer_tpu_torch.ops.raster import forward
+
+  class Guard(tgr.TruncationGuard):
+    def probe(self, gaussians2d, mapping):
+      g = self.config.points_per_chunk
+      if self.visit_chunks is not None:
+        tr, cut, drift = tgr.truncate_mapping(mapping, self.visit_chunks,
+                                              self.visit_capacity, g)
+        *_, front = forward.rasterize_forward(
+            gaussians2d, gaussians2d.new_zeros(gaussians2d.shape[0], 1), tr,
+            size, self.config, tile_front=True)
+        cropped = cut & (front <= 0)
+        print(f"    reprobe {self.reprobes}: the previous probe crops "
+              f"{int(cropped.sum())} tiles of the new frame (capacity "
+              f"overflow {bool(drift)}); that probe had kept "
+              f"{int((cropped & self.kept_whole).sum())} of them whole, and "
+              f"{int(self.kept_whole.sum())} tiles whole in all")
+      super().probe(gaussians2d, mapping)
+      starts = mapping.tile_ranges[:, 0].to(torch.int64)
+      ends = mapping.tile_ranges[:, 1].to(torch.int64)
+      cover = torch.where(ends > starts, -(-ends // g) - starts // g, 0)
+      self.kept_whole = self.visit_chunks.to(torch.int64) >= cover
+
+  return Guard(config, margin_chunks=margin_chunks)
+
+
 def trained_scene(args, dev, card, kernels, camera, g_image):
   """Phase 8: the trained-scene path at full size (module docstring)."""
   import os
@@ -493,7 +551,7 @@ def trained_scene(args, dev, card, kernels, camera, g_image):
   # training: five steps through TruncationGuard and five untruncated
   steps = 5
   torch.cuda.reset_peak_memory_stats()
-  guard = tgr.TruncationGuard(config, margin_chunks=0)
+  guard = diagnosed_guard(config, size, 0)
   reset_counts()
   grads_tr, times_tr = train_steps(scene, camera8, config, g_image, steps, guard)
   launches = counts()
@@ -506,7 +564,8 @@ def trained_scene(args, dev, card, kernels, camera, g_image):
   print(f"  training, {steps} steps through TruncationGuard(config, "
         f"margin_chunks=0): {guard.reprobes} reprobes, launches {launches}; "
         f"untruncated: launches {launches_full}")
-  assert launches == {"raster_forward": steps + 1 + 2 * guard.reprobes,
+  # a probe, a re-render and the diagnosis's forward a reprobe
+  assert launches == {"raster_forward": steps + 1 + 3 * guard.reprobes,
                       "raster_backward": steps, "segment_sum": steps}, launches
   assert all(v == steps for v in launches_full.values()), launches_full
   for i, (got, want) in enumerate(zip(grads_tr, grads_full)):
@@ -521,7 +580,7 @@ def trained_scene(args, dev, card, kernels, camera, g_image):
   # the SGD steps move the fronts and shift every later tile's start
   # against the chunk grid: how much margin keeps the guard from reprobing
   for margin in (1, 4, 16):
-    guard_m = tgr.TruncationGuard(config, margin_chunks=margin)
+    guard_m = diagnosed_guard(config, size, margin)
     reset_counts()
     grads_m, times_m = train_steps(scene, camera8, config, g_image, steps, guard_m)
     for i, (got, want) in enumerate(zip(grads_m, grads_full)):
@@ -569,7 +628,7 @@ def trained_scene(args, dev, card, kernels, camera, g_image):
     assert torch.equal(tr_h.image, full_h.image), "heavy: truncated image differs"
     assert torch.equal(tr_h.image_weight, full_h.image_weight)
   k_h = mapping_h.overlap_to_point.shape[0]
-  guard_h = tgr.TruncationGuard(config, margin_chunks=0)
+  guard_h = diagnosed_guard(config, size, 0)
   g_tr, t_tr = train_steps(heavy, camera, config, g_image, 3, guard_h)
   g_full, t_full = train_steps(heavy, camera, config, g_image, 3)
   for i, (got, want) in enumerate(zip(g_tr, g_full)):
@@ -585,6 +644,207 @@ def trained_scene(args, dev, card, kernels, camera, g_image):
         f"reprobes: {', '.join(f'{t:.3f}' for t in t_tr)} ms (the first "
         f"includes the probe); untruncated "
         f"{', '.join(f'{t:.3f}' for t in t_full)} ms")
+
+
+def parallel_paths(args, dev, card, kernels, scene, camera):
+  """Phase 9: the parallel path at full size (module docstring)."""
+  import os
+  import socket
+  import torch.distributed as dist
+  import taichi_gaussian_rasterizer_tpu_torch as tgr
+  from taichi_gaussian_rasterizer_tpu_torch import parallel
+  from taichi_gaussian_rasterizer_tpu_torch.ops import lib
+  from taichi_gaussian_rasterizer_tpu_torch.optim import (ParameterClass,
+                                                          VisibilityAwareAdam)
+
+  def reset_counts():
+    for k in kernels.values():
+      k.launch_count = 0
+
+  def counts():
+    return {name: k.launch_count for name, k in kernels.items()}
+
+  width, height = args.size
+  size = (width, height)
+  n = scene.position.shape[0]
+  near, far = camera.near_plane, camera.far_plane
+  keys = [f.name for f in dataclasses.fields(tgr.Gaussians3D)]
+  # a world of one rank on this card, from env:// as torchrun sets it
+  with socket.socket() as sock:
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+  os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                    WORLD_SIZE="1", LOCAL_RANK="0")
+  mesh = parallel.make_mesh()
+  print(f"[9 parallel] a world of {mesh.size} rank, {dist.get_backend()} on "
+        f"{mesh.device}; {n} gaussians @{width}x{height}; {card}")
+  try:
+    # (a) dp_train_step: 2 cameras a rank, VisibilityAwareAdam
+    config = tgr.RasterConfig(compute_visibility=True)
+    t_moved = camera.T_camera_world.clone()
+    t_moved[0, 3] += 0.02
+    projections = torch.stack([camera.projection] * 2)
+    t_cams = torch.stack([camera.T_camera_world, t_moved])
+    targets = torch.rand((2, height, width, 3), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+
+    def fresh_params():
+      return ParameterClass.create(
+          {k: getattr(scene, k).detach().clone() for k in keys},
+          {k: dict(lr=1e-3) for k in keys}, VisibilityAwareAdam)
+
+    # the same step written out, without the group
+    ref = fresh_params()
+    leaves = {k: ref.tensors[k].detach().requires_grad_() for k in keys}
+    ref_loss, ref_vis = 0.0, 0.0
+    for i in range(2):
+      cam = tgr.CameraParams(projections[i], t_cams[i], near, far, size)
+      r = tgr.render_gaussians(tgr.Gaussians3D(**leaves), cam, config)
+      mse = torch.mean((r.image - targets[i]) ** 2)
+      (mse / 2).backward()
+      ref_loss = ref_loss + mse.detach()
+      ref_vis = ref_vis + r.point_visibility
+    ref.step({k: leaves[k].grad for k in keys}, visibility=ref_vis)
+    ref_loss = ref_loss / 2
+    del leaves, r
+
+    step = parallel.dp_train_step(mesh, config, size, local_batch=2,
+                                  depth_range=(near, far))
+    params = parallel.replicate(fresh_params(), mesh)
+    blocks = parallel.shard_leading((projections, t_cams, targets), mesh)
+    reset_counts()
+    times, losses = [], []
+    for i in range(3):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      params, loss = step(params, *blocks)
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - t0) * 1e3)
+      losses.append(float(loss))
+      if i == 0:
+        assert torch.equal(loss, ref_loss), (float(loss), float(ref_loss))
+        for k in keys:
+          assert torch.equal(params.tensors[k], ref.tensors[k]), k
+          assert torch.equal(params.state[k].m, ref.state[k].m), k
+          assert torch.equal(params.state[k].v, ref.state[k].v), k
+        assert torch.equal(params.running_vis, ref.running_vis)
+        assert torch.equal(params.total_weight, ref.total_weight)
+    launches = counts()
+    print(f"  dp_train_step(local_batch=2), RasterConfig(compute_visibility="
+          f"True), VisibilityAwareAdam: launches in 3 steps {launches}")
+    assert launches == {"raster_forward": 6, "raster_backward": 6,
+                        "segment_sum": 12}, launches
+    for k in keys:
+      assert torch.isfinite(params.tensors[k]).all(), k
+    print(f"  step 1 equal bit for bit to the same step written out without "
+          f"the group (loss, parameters, moments, running visibility, total "
+          f"weight); losses {', '.join(f'{x:.6f}' for x in losses)}; ms/step "
+          f"{', '.join(f'{t:.3f}' for t in times)} (median "
+          f"{statistics.median(times):.3f}); per step 2 forward, 2 backward and "
+          f"4 segment-sum launches (a backward reduction and the forward "
+          f"visibility's, per camera)")
+    del params, ref, step, blocks, targets
+
+    # (b) pp_project against project_to_image
+    project = parallel.pp_project(mesh, config, size, (near, far))
+    with torch.no_grad():
+      got = project(scene, camera.projection, camera.T_camera_world)
+      want = tgr.project_to_image(scene, camera, config)
+      for label, a, b in zip(("points", "depth", "in_view"), got, want):
+        assert a.shape == b.shape and torch.equal(a, b), label
+      pp_ms = host_ms(lambda: project(scene, camera.projection,
+                                      camera.T_camera_world), 5)
+      proj_ms = host_ms(lambda: tgr.project_to_image(scene, camera, config), 5)
+    print(f"  pp_project equal to project_to_image bit for bit (points, depth, "
+          f"in_view); {pp_ms:.3f} ms against {proj_ms:.3f} ms (host clock, "
+          f"median of 5)")
+
+    # (c) tp_rasterize's stripe body looped over 4 stripes
+    config = tgr.RasterConfig()
+    ts = config.tile_size
+    features = scene.feature
+    with torch.no_grad():
+      points, depths, _ = tgr.project_to_image(scene, camera, config)
+      depth = lib.ndc_depth(torch.clamp(depths, min=near), near, far)[:, 0]
+      mapping = tgr.map_to_tiles(points, depth, size, config)
+      assert not bool(mapping.overflow), "the frame's footprints clip"
+      full = tgr.rasterize(points, depth, features, size, config)
+      loads = parallel.stripe_row_loads(points, depth, size, config)
+    partitions = {"equal": (height // (4 * ts),) * 4,
+                  "balanced": parallel.balance_stripe_rows(loads, 4)}
+    print(f"  the frame: {int(loads.sum())} overlaps over {len(loads)} tile "
+          f"rows, footprint clip flag False")
+    for label, rows in partitions.items():
+      y0s, heights, _ = parallel.stripe_offsets_px(rows, ts)
+      parts, ms = [], []
+      with torch.no_grad():
+        for i in range(4):
+          parts.append(parallel.tp_rasterize_stripe(
+              points, depth, features, config, size, rows, i))
+          ms.append(host_ms(lambda: parallel.tp_rasterize_stripe(
+              points, depth, features, config, size, rows, i), 3))
+      image = parallel.assemble_stripes(torch.cat([p[0] for p in parts]),
+                                        rows, ts)
+      weight = parallel.assemble_stripes(torch.cat([p[1] for p in parts]),
+                                         rows, ts)
+      for name, got, want in (("image", image, full.image),
+                              ("weight", weight, full.image_weight)):
+        assert got.shape == want.shape, (name, got.shape)
+        assert torch.allclose(got, want, rtol=1e-4, atol=2e-5), (
+            f"{label} stripes: {name} max |diff| "
+            f"{float((got - want).abs().max()):.3e}")
+      same = ((image == full.image).all(-1) & (weight == full.image_weight))
+      mx = max(float((image - full.image).abs().max()),
+               float((weight - full.image_weight).abs().max()))
+      stripe_loads = [int(loads[y // ts:(y + h) // ts].sum())
+                      for y, h in zip(y0s, heights)]
+      if label == "balanced" and rows == partitions["equal"]:
+        label += " (the equal partition: this frame's row loads are even)"
+      print(f"  tp_rasterize, {label} stripes: rows {list(heights)} px, "
+            f"overlap loads {stripe_loads}, ms/stripe "
+            f"{', '.join(f'{t:.3f}' for t in ms)} (host clock, median of 3); "
+            f"assembled image and weight within rtol 1e-4 / atol 2e-5 of the "
+            f"full frame: max |diff| {mx:.3e}, {float(same.double().mean()):.6f} "
+            f"of pixels bit-equal")
+
+    # (d) tp_train_step's stripe body looped over the same stripes
+    config = tgr.RasterConfig(compute_point_heuristic=True)
+    target = torch.rand((height, width, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(8))
+    leaves = [points.detach().requires_grad_(),
+              features.detach().requires_grad_(),
+              points.new_zeros(n, 2, requires_grad=True),
+              points.new_zeros(n, requires_grad=True)]
+    out = tgr.rasterize(leaves[0], depth, leaves[1], size, config,
+                        heuristic_sink=leaves[2], visibility_sink=leaves[3])
+    full_loss = torch.sum((out.image - target) ** 2)
+    want = torch.autograd.grad(full_loss, leaves)
+    del out
+    names = ("grad_points", "grad_features", "heuristics", "visibility")
+    for label, rows in partitions.items():
+      sums, ms = None, []
+      for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        part = parallel.tp_train_stripe(points, depth, features, target,
+                                        config, size, n, rows, i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        sums = part if sums is None else [a + b for a, b in zip(sums, part)]
+      loss, *grads, dropped = sums
+      assert int(dropped) == 0, int(dropped)
+      loss_rel = abs(float(loss) / float(full_loss.detach()) - 1)
+      assert loss_rel <= 1e-5, loss_rel
+      rels = []
+      for name, got, w in zip(names, grads, want):
+        rel = float((got - w).abs().max() / w.abs().max())
+        assert rel <= 1e-3, (label, name, rel)
+        rels.append(f"{name} {rel:.3e}")
+      print(f"  tp_train_step, {label} stripes, local_points {n}: 0 dropped; "
+            f"loss relative diff {loss_rel:.3e}; max |diff| / max |full| "
+            f"{', '.join(rels)}; ms/stripe {', '.join(f'{t:.3f}' for t in ms)}")
+  finally:
+    dist.destroy_process_group()
 
 
 def main() -> int:
@@ -1139,6 +1399,9 @@ def main() -> int:
 
   # ---- phase 8: the trained-scene path at full size ------------------------
   trained_scene(args, dev, card, kernels, camera, g_image)
+
+  # ---- phase 9: the parallel path at full size -----------------------------
+  parallel_paths(args, dev, card, kernels, scene, camera)
 
   # no PyTorch call computes the forward or the backward blend
   measured = {

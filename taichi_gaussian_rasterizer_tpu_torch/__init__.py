@@ -10,7 +10,8 @@ mode's heuristic and visibility sinks), saturation-front truncation
 for saturating (trained) scenes (`probe_visit_chunks`, `TruncationGuard`),
 3DGS `.ply` checkpoints (`io`), the optimizers (`optim`), the 2D
 image-fitting trainer (`models.renderer2d`,
-`examples.fit_image_gaussians`) and the utilities (`utils`). Each TPU kernel is a
+`examples.fit_image_gaussians`), the utilities (`utils`) and multi-GPU
+execution on `torch.distributed` (`parallel`). Each TPU kernel is a
 hand-written CUDA kernel (`csrc/*.cu`, built with nvcc for Hopper at
 first use) for CUDA tensors, with its plain PyTorch version for CPU
 tensors. Imports torch, never jax.

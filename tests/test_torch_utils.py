@@ -316,11 +316,11 @@ def test_profiler_trace_and_benchmarked(tmp_path, capsys):
 
 
 def test_port_imports_no_jax():
-  """Every module of the port and chip_smoke.py, parsed: no import of jax
-  or of the JAX package (its docstrings name their counterparts, which
-  is fine)."""
+  """Every module of the port, chip_smoke.py and the multi-rank tests'
+  rank helper, parsed: no import of jax or of the JAX package (its
+  docstrings name their counterparts, which is fine)."""
   files = sorted((REPO / "taichi_gaussian_rasterizer_tpu_torch").rglob("*.py"))
-  files.append(REPO / "chip_smoke.py")
+  files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_workers.py"]
   assert len(files) > 30
   banned = ("jax", "jaxlib", "taichi_gaussian_rasterizer_tpu")
   found = []
