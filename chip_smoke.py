@@ -10,8 +10,9 @@ the benchmark's size, 1M random gaussians at 2048x1536, the 2D
 image-fitting trainer, `fit`, growing to 1M gaussians on a 2048x1536
 target, and the trained-scene path: a 1M-gaussian trained-like scene
 loaded from a 3DGS `.ply`, served and trained with saturation-front
-truncation, and the multi-GPU module `parallel/` on a one-rank NCCL
-world. Phases, each printing its lines:
+truncation, the multi-GPU module `parallel/` on a one-rank NCCL world,
+and a feature-field frame of 34 blended channels, past the register
+kernels' 16. Phases, each printing its lines:
 
 1. build -- nvcc builds csrc/raster_forward.cu, raster_backward.cu and
    segment_sum.cu for sm_90a, one process each, all at once; prints the
@@ -71,8 +72,7 @@ world. Phases, each printing its lines:
    each kernel a step, 1,000,000 points at the end with every optimizer
    state row count equal to it, finite parameters and the last epoch's
    PSNR above the first's; prints each epoch's N, PSNR, loss, median
-   ms/step and split and prune counts, and the peak device memory. The
-   JSON line's launch counts are this phase's.
+   ms/step and split and prune counts, and the peak device memory.
 8. the trained-scene path at full size -- `trained_like_gaussians` (seed
    4) at phase 3's size, written with `save_gaussians_ply`, read back
    with `load_gaussians_ply(morton_order=True)` onto the card, its DC band
@@ -119,6 +119,25 @@ world. Phases, each printing its lines:
    loss within relative 1e-5 and the gradients, heuristics and visibility
    within 1e-3 of their largest |value| of the full-frame training step.
    The group is destroyed at the end of the phase.
+10. the feature field at full size -- phase 3's scene with seeded raw
+   (N, 32) features, `render_gaussians(use_sh=False, render_depth=True)`:
+   34 blended channels, which take the kernels' channel-group instances.
+   The launch counts set to 0 before five serving renders and five
+   training steps (loss sum(image * G) + sum(depth * G_d), G seeded
+   normal, loss.backward(), SGD) and read after them: one forward launch a
+   render, one launch of each kernel a step; finite, non-zero gradients on
+   all five Gaussians3D tensors at every step; the render's image equal
+   to the kernel's channels 2: on the same inputs. The forward and the
+   backward rows (a seeded normal cotangent on all 34 channels) on 64
+   seeded tiles against the plain versions, the backward bitwise the same
+   on a second run, the segment sums of its 40 rows over the whole frame
+   against plain; ms/frame, ms/step, peak device memory, and each
+   kernel's, plain version's and (segment sum) `index_add_`'s time beside
+   its bound. Then at F = 17, 64 and 128 (seeded raw features, no depth):
+   a serving render and a training step through `render_gaussians`,
+   finite, the forward and backward on 64 seeded tiles against plain,
+   and both kernels' times beside their bounds. The JSON line's launches,
+   errors, times and bounds are this phase's 34-channel frame's.
 
 Truncation is exact, so phase 8 holds the truncated frame to the
 untruncated one bit for bit: it keeps each tile's bin up to where every
@@ -142,7 +161,7 @@ Tolerances (float32, kernel against plain on the same inputs):
 * forward visibility: the forward's tolerances above, on the per-slot
   sums.
 
-Phases 2b, 2c, 3, 4b, 5 and 8 print each kernel's bound beside its time: the
+Phases 2b, 2c, 3, 4b, 5, 8 and 10 print each kernel's bound beside its time: the
 larger of its bytes over the card's memory rate and its FP32 operations
 over the card's FP32 rate, the operations counted on the (pixel, slot)
 pairs of the phase's own frame whose alpha passes the threshold
@@ -847,6 +866,211 @@ def parallel_paths(args, dev, card, kernels, scene, camera):
     dist.destroy_process_group()
 
 
+def feature_field(args, dev, card, kernels, scene, camera):
+  """Phase 10: the feature-field frame at full size (module docstring).
+  Returns the JSON line's entry of each kernel, measured on this frame."""
+  import taichi_gaussian_rasterizer_tpu_torch as tgr
+  from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
+      backward, bounds, forward, reduce, reduce_slots_by_point, tiles)
+
+  def reset_counts():
+    for k in kernels.values():
+      k.launch_count = 0
+
+  def counts():
+    return {name: k.launch_count for name, k in kernels.items()}
+
+  width, height = args.size
+  size = (width, height)
+  n = scene.position.shape[0]
+  channels = 32
+  config = tgr.RasterConfig()
+  gen = torch.Generator(device=dev).manual_seed(10)
+  field = dataclasses.replace(
+      scene, feature=torch.rand((n, channels), generator=gen, device=dev))
+  blended = channels + 2
+  print(f"[10 feature field] {n} gaussians @{width}x{height}, {channels} raw "
+        f"channels (use_sh=False) + render_depth: {blended} blended; "
+        f"RasterConfig(); {card}")
+
+  # serving: five renders
+  reset_counts()
+  frame_ms = []
+  for _ in range(5):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = tgr.render_gaussians(field, camera, config, render_depth=True)
+    torch.cuda.synchronize()
+    frame_ms.append((time.perf_counter() - t0) * 1e3)
+  assert counts() == {"raster_forward": 5, "raster_backward": 0,
+                      "segment_sum": 0}, counts()
+  assert r.image.shape == (height, width, channels)
+  for name in ("image", "image_weight", "depth", "depth_var"):
+    assert torch.isfinite(getattr(r, name)).all(), name
+
+  # training: five steps of loss sum(image * G) + sum(depth * G_d)
+  params = {f.name: getattr(field, f.name).detach().clone().requires_grad_()
+            for f in dataclasses.fields(tgr.Gaussians3D)}
+  gen_g = torch.Generator(device=dev).manual_seed(11)
+  g_image = torch.randn((height, width, channels), generator=gen_g, device=dev)
+  g_depth = torch.randn((height, width), generator=gen_g, device=dev)
+  lr = 1e-6
+  torch.cuda.reset_peak_memory_stats()
+  step_ms = []
+  for _ in range(5):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt = tgr.render_gaussians(tgr.Gaussians3D(**params), camera, config,
+                              render_depth=True)
+    ((rt.image * g_image).sum() + (rt.depth * g_depth).sum()).backward()
+    with torch.no_grad():
+      for p in params.values():
+        p -= lr * p.grad
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+    grads = {name: p.grad for name, p in params.items()}
+    check_grads("feature-field step", grads)
+    for p in params.values():
+      p.grad = None
+  launches = counts()
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  assert launches == {"raster_forward": 10, "raster_backward": 5,
+                      "segment_sum": 5}, launches
+  print(f"  launches in 5 renders and 5 training steps: {launches}; finite, "
+        f"non-zero gradients on all five tensors at every step")
+  print(f"  ms/frame median {statistics.median(frame_ms):.3f} (5 renders: "
+        f"{', '.join(f'{t:.3f}' for t in frame_ms)}); ms/step median "
+        f"{statistics.median(step_ms):.3f} (5 steps: "
+        f"{', '.join(f'{t:.3f}' for t in step_ms)}); peak device memory in "
+        f"the steps {peak:.2f} GiB")
+  del rt, grads, params
+
+  # the frame's kernel inputs, as render_projected builds them
+  with torch.no_grad():
+    points, depths, _ = tgr.project_to_image(field, camera, config)
+    feats = torch.cat([depths, depths * depths, field.feature], 1)
+    _, mapping = project_and_map(field, camera, config)
+    image, weight = forward.rasterize_forward(points, feats, mapping, size, config)
+    assert torch.equal(image[..., 2:], r.image), "the render's image differs"
+    n_tiles = mapping.tile_ranges.shape[0]
+    ids = torch.randperm(n_tiles, generator=torch.Generator().manual_seed(66))[:64]
+    ids_dev = ids.to(dev)
+    inside = tiles.image_to_tiles(torch.ones(height, width, 1, device=dev),
+                                  mapping.tile_shape, config.tile_size)[ids_dev] > 0
+
+    def hold_forward(label, f, img, w):
+      got = tiles.image_to_tiles(torch.cat([img, w[..., None]], -1),
+                                 mapping.tile_shape, config.tile_size)[ids_dev]
+      want_img, want_w = forward.rasterize_tiles_plain(points, f, mapping, config,
+                                                       tile_ids=ids.tolist())
+      return check_close(label, got, torch.cat([want_img, want_w[:, None]], 1)
+                         * inside, blending=True)
+
+    def hold_backward(label, bw):
+      slots = backward.rasterize_backward(*bw)
+      want = backward.raster_backward_plain(*bw, tile_ids=ids.tolist())
+      sel = torch.zeros(slots.shape[1], dtype=torch.bool, device=dev)
+      for start, end in mapping.tile_ranges[ids_dev].tolist():
+        sel[start:end] = True
+      return slots, check_rows(label, slots[:, sel], want[:, sel])
+
+    fwd_err = hold_forward(f"64 seeded tiles, F = {blended} forward vs plain",
+                           feats, image, weight)
+    g_blend = torch.randn((height, width, blended), generator=gen_g, device=dev)
+    bw = (points, feats, mapping, config, image, weight, g_blend,
+          torch.zeros_like(weight))
+    slots, bwd_err = hold_backward(f"64 seeded tiles, F = {blended} backward "
+                                   f"vs plain", bw)
+    assert torch.equal(slots, backward.rasterize_backward(*bw)), "two runs differ"
+    keys, order = torch.sort(mapping.overlap_to_point, stable=True)
+    grouped = slots.index_select(1, order)
+    seg_err = check_segment_sums(
+        f"whole frame, segment-sum kernel vs plain ({slots.shape[0]} rows)",
+        reduce.segment_sums_cuda(grouped, mapping.point_offsets, n),
+        reduce.segment_sums_plain(keys, grouped, n))
+
+    k = int(mapping.total_overlaps)
+    work = bounds.raster_work(points, mapping, config, size)
+    fwd_ms = cuda_ms(lambda: forward.rasterize_forward(points, feats, mapping,
+                                                       size, config), reps=10)
+    fwd_plain_ms = cuda_ms(lambda: forward.rasterize_tiles_plain(
+        points, feats, mapping, config), reps=1)
+    bwd_ms = cuda_ms(lambda: backward.rasterize_backward(*bw), reps=5)
+    bwd_plain_ms = cuda_ms(lambda: backward.raster_backward_plain(*bw), reps=1)
+    red_ms = cuda_ms(lambda: reduce_slots_by_point(slots, mapping), reps=5)
+    seg_ms = cuda_ms(lambda: reduce.segment_sums_cuda(
+        grouped, mapping.point_offsets, n), reps=20)
+    seg_plain_ms = cuda_ms(lambda: reduce.segment_sums_plain(keys, grouped, n),
+                           reps=5)
+    sums = torch.zeros((n + 1, grouped.shape[0]), device=dev)
+    keys64, rows_t = keys.to(torch.int64), grouped.T
+    seg_library_ms = cuda_ms(lambda: sums.index_add_(0, keys64, rows_t), reps=5)
+    fwd_bound = bounds.forward_bound(work, n, blended, k, n_tiles, size,
+                                     config.antialias)
+    bwd_bound = bounds.backward_bound(work, n, blended, k, n_tiles, size,
+                                      config.antialias, False, False)
+    seg_bound = bounds.segment_sum_bound(grouped.shape[0], k, n)
+    print(f"  F = {blended} (CUDA events, whole frame): forward kernel "
+          f"{fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, "
+          f"{bound_line(fwd_bound, fwd_ms)}; backward kernel {bwd_ms:.4f} ms "
+          f"({slots.shape[0]} rows), plain {bwd_plain_ms:.4f} ms, "
+          f"{bound_line(bwd_bound, bwd_ms)}; reduction (sort + gather + "
+          f"segment sum) {red_ms:.4f} ms; segment-sum kernel {seg_ms:.4f} ms, "
+          f"plain {seg_plain_ms:.4f} ms, index_add_ {seg_library_ms:.4f} ms, "
+          f"{bound_line(seg_bound, seg_ms)}")
+    del slots, grouped, sums, rows_t, bw
+
+  # how the kernels' times grow with F: one serving render and one
+  # training step through the entry points, then the kernels alone
+  for f in (17, 64, 128):
+    scene_f = dataclasses.replace(
+        scene, feature=torch.rand((n, f), generator=gen, device=dev))
+    with torch.no_grad():
+      rf = tgr.render_gaussians(scene_f, camera, config)
+      assert rf.image.shape == (height, width, f)
+      assert torch.isfinite(rf.image).all()
+    leaves = {name: getattr(scene_f, name).detach().requires_grad_()
+              for name in ("position", "feature")}
+    rg = tgr.render_gaussians(dataclasses.replace(scene_f, **leaves), camera,
+                              config)
+    (rg.image * torch.randn((height, width, f), generator=gen_g,
+                            device=dev)).sum().backward()
+    for name, leaf in leaves.items():
+      assert torch.isfinite(leaf.grad).all() and leaf.grad.abs().sum() > 0, name
+    del rg, leaves
+    with torch.no_grad():
+      ff = scene_f.feature
+      image_f, weight_f = forward.rasterize_forward(points, ff, mapping, size,
+                                                    config)
+      hold_forward(f"F = {f}, 64 seeded tiles, forward vs plain", ff, image_f,
+                   weight_f)
+      bw_f = (points, ff, mapping, config, image_f, weight_f,
+              torch.randn((height, width, f), generator=gen_g, device=dev),
+              torch.zeros_like(weight_f))
+      hold_backward(f"F = {f}, 64 seeded tiles, backward vs plain", bw_f)
+      f_ms = cuda_ms(lambda: forward.rasterize_forward(points, ff, mapping,
+                                                       size, config), reps=5)
+      b_ms = cuda_ms(lambda: backward.rasterize_backward(*bw_f), reps=3)
+      f_bound = bounds.forward_bound(work, n, f, k, n_tiles, size,
+                                     config.antialias)
+      b_bound = bounds.backward_bound(work, n, f, k, n_tiles, size,
+                                      config.antialias, False, False)
+    print(f"  F = {f}: a serving render and a training step through "
+          f"render_gaussians, finite; forward kernel {f_ms:.4f} ms, "
+          f"{bound_line(f_bound, f_ms)}; backward kernel {b_ms:.4f} ms, "
+          f"{bound_line(b_bound, b_ms)} (CUDA events)")
+    del image_f, weight_f, bw_f, scene_f
+
+  return {
+      "raster_forward": (launches["raster_forward"], fwd_err, fwd_ms,
+                         fwd_plain_ms, fwd_bound, None),
+      "raster_backward": (launches["raster_backward"], bwd_err, bwd_ms,
+                          bwd_plain_ms, bwd_bound, None),
+      "segment_sum": (launches["segment_sum"], seg_err, seg_ms, seg_plain_ms,
+                      seg_bound, seg_library_ms),
+  }
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   parser.add_argument("--n", type=int, default=1_000_000,
@@ -1403,20 +1627,17 @@ def main() -> int:
   # ---- phase 9: the parallel path at full size -----------------------------
   parallel_paths(args, dev, card, kernels, scene, camera)
 
-  # no PyTorch call computes the forward or the backward blend
-  measured = {
-      "raster_forward": (fwd_err, fwd_ms, fwd_plain_ms, fwd_bound, None),
-      "raster_backward": (bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, None),
-      "segment_sum": (seg_err, seg_ms, seg_plain_ms, seg_bound, seg_library_ms),
-  }
+  # ---- phase 10: the feature-field frame at full size ----------------------
+  # its kernels' launches, errors, times and bounds make the JSON line; no
+  # PyTorch call computes the forward or the backward blend
+  measured = feature_field(args, dev, card, kernels, scene, camera)
   print(card_line())
   print(json.dumps({"kernels": [
       {"name": name, "route": "cuda", "source": KERNELS[name][0],
-       "replaces": KERNELS[name][1], "launches": fit_launches[name],
-       "max_abs_err": err, "ms": ms, "plain_ms": plain,
-       "bound_ms": bound["ms"], "bound_by": bound["bound_by"],
-       "library_ms": library}
-      for name, (err, ms, plain, bound, library) in measured.items()]}))
+       "replaces": KERNELS[name][1], "launches": launches, "max_abs_err": err,
+       "ms": ms, "plain_ms": plain, "bound_ms": bound["ms"],
+       "bound_by": bound["bound_by"], "library_ms": library}
+      for name, (launches, err, ms, plain, bound, library) in measured.items()]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": device_name,
       "count": torch.cuda.device_count()}}))

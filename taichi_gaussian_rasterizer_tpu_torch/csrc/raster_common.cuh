@@ -25,7 +25,9 @@
 
 namespace tgr {
 
-constexpr int kMaxFeatures = 16;
+// feature channels the register-resident instances hold a pixel's
+// accumulators for; wider F takes the channel-group instances below
+constexpr int kRegisterFeatures = 16;
 constexpr int kPointRows = 7;   // staged floats per point (see stage_point)
 constexpr int kStageStride = 8; // floats a staged point takes: two 16-byte loads
 constexpr float kLogAlphaFloor = -1e4f;
@@ -184,6 +186,56 @@ __device__ __forceinline__ void stage_batch(
     s_ext[j] = threshold_extent<kAntialias>(p, col, log_threshold);
     const float* feat = features + static_cast<long long>(idx) * num_features;
     for (int f = 0; f < num_features; ++f) s_feat[f * batch + j] = feat[f];
+  }
+}
+
+// ---- the channel-group (wide) instances: any F ----------------------------
+//
+// Past kRegisterFeatures a kernel cannot keep a pixel's F accumulators (or
+// cotangents) in registers, nor stage all F channels of a batch in shared
+// memory for every F. The wide instances split the channels into groups
+// and replay each tile's blend once per group: the weights do not depend
+// on the features, and every replay runs the same staging, pdf, gate and
+// transmittance code, so each replay gates every (pixel, slot) pair
+// exactly as the others do. A launch's work items are (tile, group)
+// pairs, the groups of one tile consecutive in the queue, so that the
+// blocks replaying one bin run at about the same time and share its reads
+// in L2. The wide instances take two pixels a thread, the layout
+// pixels_per_thread gives for every F > kSmallFeatures, which the visibility
+// sums of both kernels share.
+constexpr int kWidePPT = 2;
+
+__host__ __device__ constexpr int channel_groups(int num_features, int group) {
+  return (num_features + group - 1) / group;
+}
+
+// Stage slots [base, base + count) of the tile's bin as columns of s_pt
+// and s_ext, as stage_batch does, without their features.
+template <bool kAntialias>
+__device__ __forceinline__ void stage_points(
+    const float* __restrict__ points, const int* __restrict__ overlap_to_point,
+    int base, int count, float ox, float oy, float log_threshold, float* s_pt,
+    float2* s_ext) {
+  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    const int idx = overlap_to_point[base + j];
+    const float* p = points + static_cast<long long>(idx) * kPointRows;
+    float* col = s_pt + kStageStride * j;
+    stage_point<kAntialias>(p, ox, oy, col);
+    s_ext[j] = threshold_extent<kAntialias>(p, col, log_threshold);
+  }
+}
+
+// Stage channels [first, first + width) of slots [base, base + count) as
+// s_feat ([width][batch]); the block's threads take (slot, channel) pairs
+// in turn, so a slot's channels are read as one contiguous run.
+__device__ __forceinline__ void stage_feature_slice(
+    const float* __restrict__ features, const int* __restrict__ overlap_to_point,
+    int base, int count, int num_features, int first, int width, float* s_feat,
+    int batch) {
+  for (int e = threadIdx.x; e < count * width; e += blockDim.x) {
+    const int j = e / width, f = e - j * width;
+    s_feat[f * batch + j] = features[
+        static_cast<long long>(overlap_to_point[base + j]) * num_features + first + f];
   }
 }
 
@@ -360,8 +412,20 @@ __device__ __forceinline__ int next_tile(int* tile_counter, const int* tile_orde
   return q < num_tiles ? tile_order[q] : -1;
 }
 
+// The next work item of a queue of num_items, or -1 once it is empty;
+// uniform over the block (next_tile without the tile order, for the wide
+// instances' (tile, group) items).
+__device__ __forceinline__ int next_item(int* counter, int num_items, int* s_slot) {
+  __syncthreads();
+  if (threadIdx.x == 0) *s_slot = atomicAdd(counter, 1);
+  __syncthreads();
+  const int q = *s_slot;
+  return q < num_items ? q : -1;
+}
+
 // The persistent grid of a launch: as many blocks of `kernel` as fit on the
-// device at once, at most num_tiles. Sets the dynamic shared memory the
+// device at once, at most num_tiles (the queue's length: tiles, or the wide
+// instances' (tile, group) items). Sets the dynamic shared memory the
 // kernel needs and zeroes the tile counter on the stream. The occupancy
 // query is made once per (kernel, block size, shared memory, device) and
 // cached: a launch costs little more host time than a plain one.

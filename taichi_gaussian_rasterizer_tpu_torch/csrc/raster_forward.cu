@@ -318,16 +318,252 @@ using LaunchFn = cudaError_t (*)(const float*, const float*, const int*,
 // F <= 16 and 2
 #define TGR_INSTANCES(AA, BL)                                           \
   launch<AA, BL, false, kSmallFeatures, 2>,                             \
-      launch<AA, BL, false, kMaxFeatures, 2>,                           \
+      launch<AA, BL, false, kRegisterFeatures, 2>,                      \
       launch<AA, BL, false, kSmallFeatures, AA ? 1 : 2>,                \
-      launch<AA, BL, false, kMaxFeatures, AA ? 1 : 2>,                  \
+      launch<AA, BL, false, kRegisterFeatures, AA ? 1 : 2>,             \
       launch<AA, BL, true, kSmallFeatures, 4>,                          \
       launch<AA, BL, true, kSmallFeatures, 2>,                          \
-      launch<AA, BL, true, kMaxFeatures, 2>
+      launch<AA, BL, true, kRegisterFeatures, 2>
 constexpr LaunchFn kLaunch[28] = {
     TGR_INSTANCES(false, false), TGR_INSTANCES(false, true),
     TGR_INSTANCES(true, false), TGR_INSTANCES(true, true)};
 #undef TGR_INSTANCES
+
+// ---- F > kRegisterFeatures: one replay a group of 16 channels ------------
+//
+// A work item is a (tile, channel group) pair (raster_common.cuh): the
+// block replays the tile's bin as the register instances do, two pixels a
+// thread, blending the group's channels from a [16][kBatch] shared slice,
+// so shared memory and registers stay those of an F = 16 instance for
+// every F. The gates, weights and T of every replay are the same, so in
+// quantile mode each group emits the same crossing point's channels. The
+// first group of a tile also writes the weight image, the tile's
+// saturation front and, with visibility, the per-slot sums in the
+// visibility instances' order (every lane runs every slot); the other
+// groups take the threshold-box bit masks. At F = 34 on the 1M @2048x1536
+// frame (chip_smoke.py phase 10, NVIDIA H100 80GB HBM3 at 700 W) a launch
+// takes 4.13 ms, 4.4% of its bound (the 34-channel image's bytes): a
+// 16-channel replay costs about twice the F <= 4 kernel.
+template <bool kAntialias, bool kBlending, bool kVisibility>
+__global__ void __launch_bounds__(512)
+raster_forward_wide_kernel(const float* __restrict__ points,
+                           const float* __restrict__ features,
+                           const int* __restrict__ overlap_to_point,
+                           const int* __restrict__ tile_ranges,
+                           const int* __restrict__ tile_order,
+                           int* __restrict__ tile_counter, int num_tiles,
+                           int tiles_x, int tile_size, int width, int height,
+                           int num_features, float alpha_threshold,
+                           float clamp_max_alpha, float saturate_threshold,
+                           float* __restrict__ image,
+                           float* __restrict__ weight,
+                           float* __restrict__ visibility,
+                           int* __restrict__ tile_front) {
+  constexpr int kPPT = kWidePPT;
+  constexpr int kCap = kRegisterFeatures;
+  constexpr unsigned kAllDone = (1u << kPPT) - 1;
+  extern __shared__ float smem[];
+  __shared__ int s_slot;
+  __shared__ int s_front;
+  const int threads = blockDim.x;
+  float* s_pt = smem;                             // [kBatch][kStageStride]
+  float2* s_ext = reinterpret_cast<float2*>(s_pt + kStageStride * kBatch);  // [kBatch]
+  float* s_feat = reinterpret_cast<float*>(s_ext + kBatch);  // [kCap][kBatch]
+  float* s_part = s_feat + kCap * kBatch;         // [n_warps][kBatch] (kVisibility)
+
+  const int tid = threadIdx.x;
+  const int lx = tid % tile_size, ly0 = (tid / tile_size) * kPPT;
+  const float cx = lx + 0.5f;
+  const float log_threshold = logf(alpha_threshold);
+  const float c = 1.0f - saturate_threshold;
+  const float stop = kBlending ? saturate_threshold : c;
+  const int groups = channel_groups(num_features, kCap);
+  if (tid == 0) s_front = -1;
+
+  for (;;) {
+    const int item = next_item(tile_counter, num_tiles * groups, &s_slot);
+    if (item < 0) break;
+    const int tile = tile_order[item / groups];
+    const int f0 = (item % groups) * kCap;
+    const int nf = min(kCap, num_features - f0);
+    const bool first = f0 == 0;   // uniform over the block
+    const int tx = tile % tiles_x, ty = tile / tiles_x;
+    const float ox = static_cast<float>(tx * tile_size);
+    const float oy = static_cast<float>(ty * tile_size);
+    const int start = tile_ranges[2 * tile];
+    const int end = tile_ranges[2 * tile + 1];
+
+    float T[kPPT], acc[kPPT][kCap];
+    float alpha_acc[kPPT];
+    unsigned done = 0;
+    int last_stop = -1;
+    bool saturated = false;
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k) {
+      T[k] = 1.0f;
+      alpha_acc[k] = 0.0f;
+#pragma unroll
+      for (int f = 0; f < kCap; ++f) acc[k][f] = 0.0f;
+      const int ly = ly0 + k;
+      if (ly >= tile_size || tx * tile_size + lx >= width
+          || ty * tile_size + ly >= height) {
+        done |= 1u << k;
+      }
+    }
+
+    for (int base = start; base < end; base += kBatch) {
+      const int count = min(kBatch, end - base);
+      stage_points<kAntialias>(points, overlap_to_point, base, count, ox, oy,
+                               log_threshold, s_pt, s_ext);
+      stage_feature_slice(features, overlap_to_point, base, count,
+                          num_features, f0, nf, s_feat, kBatch);
+      __syncthreads();
+
+      // raster_forward_kernel's blend_slot on the group's channels
+      auto blend_slot = [&](int j) {
+        float vis = 0.0f;
+        const Staged p = load_staged(s_pt, j);
+        float a_raws[kPPT];
+#pragma unroll
+        for (int k = 0; k < kPPT; ++k) {
+          AntialiasTerms unused;
+          a_raws[k] = alpha_raw<kAntialias>(p, cx, (ly0 + k) + 0.5f, &unused);
+        }
+        float feat[kCap];
+        bool loaded = false;
+#pragma unroll
+        for (int k = 0; k < kPPT; ++k) {
+          const float a_raw = a_raws[k];
+          if ((done & (1u << k)) || !(a_raw > alpha_threshold)) continue;
+          if (!loaded) {
+#pragma unroll
+            for (int f = 0; f < kCap; ++f) {
+              feat[f] = f < nf ? s_feat[f * kBatch + j] : 0.0f;
+            }
+            loaded = true;
+          }
+          const float a = fminf(a_raw, clamp_max_alpha);
+          const float total_before = one_minus(T[k]);
+          float w;
+          if (kBlending) {
+            w = total_before < saturate_threshold ? __fmul_rn(a, T[k]) : 0.0f;
+            alpha_acc[k] += w;
+          } else {
+            const float total_after = one_minus(transmit(T[k], a));
+            w = (total_before < c && total_after >= c) ? 1.0f : 0.0f;
+            alpha_acc[k] += a * T[k];
+          }
+#pragma unroll
+          for (int f = 0; f < kCap; ++f) acc[k][f] += w * feat[f];
+          vis = __fadd_rn(vis, w);
+          T[k] = transmit(T[k], a);
+          if (stopped(T[k], stop)) {
+            done |= 1u << k;
+            last_stop = base + j - start;
+          }
+        }
+        return vis;
+      };
+
+      if (!(kVisibility && first)) {
+        for (int c0 = 0; c0 < count && done != kAllDone; c0 += 32) {
+          const int n = min(32, count - c0);
+          unsigned todo = 0;
+          for (int i = 0; i < n; ++i) {
+            if (!outside_box(s_pt, s_ext, c0 + i, cx, ly0, kPPT)) todo |= 1u << i;
+          }
+          while (todo != 0 && done != kAllDone) {
+            blend_slot(c0 + __ffs(todo) - 1);
+            todo &= todo - 1;
+          }
+        }
+      } else {
+        float* part = s_part + (tid / 32) * kBatch;
+        for (int j = 0; j < count; ++j) {
+          if (__all_sync(kFullMask, done == kAllDone)) {
+            for (int i = j + tid % 32; i < count; i += 32) part[i] = 0.0f;
+            break;
+          }
+          const bool live = done != kAllDone
+              && !outside_box(s_pt, s_ext, j, cx, ly0, kPPT);
+          const float x = warp_sum_xor(live ? blend_slot(j) : 0.0f);
+          if (tid % 32 == 0) part[j] = x;
+        }
+      }
+
+      const int alive = __syncthreads_count(done != kAllDone);
+      if (kVisibility && first) {
+        for (int j = tid; j < count; j += threads) {
+          visibility[base + j] = block_slot_sum(s_part + j, threads / 32, kBatch);
+        }
+      }
+      if (!alive) {
+        saturated = true;
+        break;
+      }
+    }
+
+    if (tile_front != nullptr && first) {
+      if (last_stop >= 0) atomicMax(&s_front, last_stop);
+      __syncthreads();
+      if (tid == 0) {
+        tile_front[tile] = start == end ? 0 : (saturated ? s_front + 1 : start - end);
+        s_front = -1;
+      }
+    }
+
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k) {
+      const int ly = ly0 + k;
+      const int px = tx * tile_size + lx, py = ty * tile_size + ly;
+      if (ly < tile_size && px < width && py < height) {
+        const long long pix = static_cast<long long>(py) * width + px;
+#pragma unroll
+        for (int f = 0; f < kCap; ++f) {
+          if (f < nf) image[pix * num_features + f0 + f] = acc[k][f];
+        }
+        if (first) {
+          weight[pix] = kBlending ? alpha_acc[k]
+                                  : (alpha_acc[k] > 0.0f ? 1.0f : 0.0f);
+        }
+      }
+    }
+  }
+}
+
+template <bool kAntialias, bool kBlending, bool kVisibility>
+cudaError_t launch_wide(const float* points, const float* features,
+                        const int* overlap_to_point, const int* tile_ranges,
+                        const int* tile_order, int* tile_counter, int num_tiles,
+                        int tiles_x, int tile_size, int width, int height,
+                        int num_features, float alpha_threshold,
+                        float clamp_max_alpha, float saturate_threshold,
+                        float* image, float* weight, float* visibility,
+                        int* tile_front, cudaStream_t stream) {
+  auto kernel = raster_forward_wide_kernel<kAntialias, kBlending, kVisibility>;
+  const int threads = block_threads(tile_size, kWidePPT);
+  const size_t smem = sizeof(float) * static_cast<size_t>(kBatch)
+      * (kStageStride + 2 + kRegisterFeatures
+         + (kVisibility ? (threads + 31) / 32 : 0));
+  const int items = num_tiles * channel_groups(num_features, kRegisterFeatures);
+  int blocks = 0;
+  const cudaError_t err = persistent_blocks(kernel, threads, smem, items,
+                                            tile_counter, stream, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, smem, stream>>>(
+      points, features, overlap_to_point, tile_ranges, tile_order, tile_counter,
+      num_tiles, tiles_x, tile_size, width, height, num_features,
+      alpha_threshold, clamp_max_alpha, saturate_threshold, image, weight,
+      visibility, tile_front);
+  return cudaGetLastError();
+}
+
+// indexed by (antialias * 2 + blending) * 2 + visibility
+constexpr LaunchFn kLaunchWide[8] = {
+    launch_wide<false, false, false>, launch_wide<false, false, true>,
+    launch_wide<false, true, false>,  launch_wide<false, true, true>,
+    launch_wide<true, false, false>,  launch_wide<true, false, true>,
+    launch_wide<true, true, false>,   launch_wide<true, true, true>};
 
 }  // namespace
 
@@ -338,13 +574,21 @@ extern "C" int tgr_raster_forward(
     int num_features, float alpha_threshold, float clamp_max_alpha,
     float saturate_threshold, int antialias, int blending, float* image,
     float* weight, float* visibility, int* tile_front, void* stream) {
-  if (num_features < 1 || num_features > kMaxFeatures) return cudaErrorInvalidValue;
+  if (num_features < 1) return cudaErrorInvalidValue;
   if (tile_size < 1 || tile_size * tile_size > 1024) return cudaErrorInvalidValue;
   // the visibility sums shuffle over whole warps
   if (visibility != nullptr && (tile_size * tile_size) % 32 != 0) {
     return cudaErrorInvalidValue;
   }
   if (num_tiles == 0) return cudaSuccess;
+  if (num_features > kRegisterFeatures) {
+    return kLaunchWide[((antialias ? 2 : 0) + (blending ? 1 : 0)) * 2
+                       + (visibility != nullptr ? 1 : 0)](
+        points, features, overlap_to_point, tile_ranges, tile_order,
+        tile_counter, num_tiles, tiles_x, tile_size, width, height,
+        num_features, alpha_threshold, clamp_max_alpha, saturate_threshold,
+        image, weight, visibility, tile_front, static_cast<cudaStream_t>(stream));
+  }
   // Without visibility each pixel is its own: two pixels a thread keep
   // more threads in flight where pixels stop early, and one under the
   // antialiased pdf, which measured faster so on a saturating frame (one

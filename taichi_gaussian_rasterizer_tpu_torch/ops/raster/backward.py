@@ -231,8 +231,10 @@ def raster_backward_cuda(points: torch.Tensor, features: torch.Tensor,
                          grad_image: torch.Tensor, grad_weight: torch.Tensor,
                          compute_point_heuristic: bool = False,
                          vis_row: bool = False) -> torch.Tensor:
-  """Launch the CUDA kernel: float32 only, (N, F) features with F <= 16,
-  tile_size 8, 16 or 32 (whole warps). Returns the (R, K) slot rows."""
+  """Launch the CUDA kernel: float32 only, (N, F) features of any width
+  F >= 1 (past 16 channels, a pass for the point, heuristic and visibility
+  rows, then one a group of 32 feature rows), tile_size**2 a multiple of
+  32 and at most 1024 (whole warps). Returns the (R, K) slot rows."""
   _check_backward_inputs(points, features, mapping, config, image, weight,
                          grad_image, grad_weight)
   ts = config.tile_size

@@ -45,8 +45,6 @@ from ...utils.cuda_build import CudaKernel
 from ..mapper import TileMapping
 from .tiles import image_to_tiles, tiles_to_image
 
-MAX_FEATURES = 16   # kMaxFeatures in csrc/raster_forward.cu
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 RASTER_FORWARD = CudaKernel(
     "raster_forward.cu", "tgr_raster_forward",
@@ -220,17 +218,17 @@ def _check_cuda_inputs(points, features, mapping):
       raise ValueError(f"{name} must be contiguous")
   if points.ndim != 2 or points.shape[1] != 7:
     raise ValueError(f"points must be (N, 7), got {tuple(points.shape)}")
-  if not 1 <= f <= MAX_FEATURES or features.shape[0] != points.shape[0]:
-    raise ValueError(
-        f"the CUDA raster kernel takes (N, F) features with 1 <= F <= "
-        f"{MAX_FEATURES} (MAX_FEATURES), got {tuple(features.shape)}")
+  if f < 1 or features.shape[0] != points.shape[0]:
+    raise ValueError(f"the CUDA raster kernel takes (N, F) features with "
+                     f"1 <= F, got {tuple(features.shape)}")
 
 
 def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
                          mapping: TileMapping, image_size: Tuple[int, int],
                          config: RasterConfig, compute_visibility: bool = False,
                          tile_front: bool = False):
-  """Launch the CUDA kernel: float32 only, (N, F) features with F <= 16,
+  """Launch the CUDA kernel: float32 only, (N, F) features of any width
+  F >= 1 (past 16 channels, one replay of each tile a group of 16),
   tile_size**2 <= 1024 (a multiple of 32 with compute_visibility).
   Returns (image (H, W, F), weight (H, W)) [+ per-slot visibility (K,)]
   [+ saturation front (T,)]."""

@@ -88,7 +88,7 @@ def test_kernel_matches_plain_on_card(cuda_device, antialias, blending, tile_siz
 def test_kernel_takes_sixteen_features(cuda_device, tile_size):
   """F = 16 at 32x32 tiles needs more than 48 KB of shared memory."""
   diff = _kernel_vs_plain(cuda_device, RasterConfig(tile_size=tile_size),
-                          n_features=forward.MAX_FEATURES)
+                          n_features=16)
   assert np.quantile(diff, 0.999) <= 1e-4 and diff.max() <= 2e-2
 
 
@@ -158,7 +158,7 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, antialias, heuristic
 def test_backward_kernel_takes_sixteen_features(cuda_device, tile_size):
   """F = 16 at 32x32 tiles needs more than 48 KB of shared memory."""
   config = RasterConfig(tile_size=tile_size)
-  args = _backward_inputs(cuda_device, config, n_features=forward.MAX_FEATURES)
+  args = _backward_inputs(cuda_device, config, n_features=16)
   kw = dict(compute_point_heuristic=True, vis_row=True)
   got = backward.rasterize_backward(*args[:3], config, *args[3:], **kw)
   want = backward.raster_backward_plain(*args[:3], config, *args[3:], **kw)
@@ -658,3 +658,91 @@ def test_tile_front_and_truncation_on_card(cuda_device, tile_size):
                  (tr.visibility, full.visibility), (tr_sink.image, full_sink.image),
                  *zip(g_tr, g_full)]:
       assert torch.equal(a, b)
+
+
+# ---- any feature width: the channel-group instances (F > 16) ---------------
+
+WIDE_FEATURES = (17, 32, 34, 64, 128, 129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_features", WIDE_FEATURES)
+@pytest.mark.parametrize("tile_size", [8, 16, 32])
+def test_wide_kernels_match_plain(cuda_device, tile_size, n_features):
+  """Past 16 channels: the forward in all four modes and the backward,
+  conic and antialias, with and without the heuristic and visibility
+  rows, against plain at the tolerances above; one launch each."""
+  for antialias in (False, True):
+    for blending in (True, False):
+      config = RasterConfig(tile_size=tile_size, antialias=antialias,
+                            use_alpha_blending=blending)
+      diff = _kernel_vs_plain(cuda_device, config, n_features=n_features)
+      assert np.quantile(diff, 0.999) <= 1e-4, (antialias, blending)
+      if blending:
+        assert diff.max() <= 2e-2, (antialias, blending)
+    config = RasterConfig(tile_size=tile_size, antialias=antialias)
+    args = _backward_inputs(cuda_device, config, n_features=n_features)
+    for extra in (False, True):
+      kw = dict(compute_point_heuristic=extra, vis_row=extra)
+      before = backward.RASTER_BACKWARD.launch_count
+      got = backward.rasterize_backward(*args[:3], config, *args[3:], **kw)
+      torch.cuda.synchronize()
+      assert backward.RASTER_BACKWARD.launch_count == before + 1
+      want = backward.raster_backward_plain(*args[:3], config, *args[3:], **kw)
+      assert got.shape == want.shape == (
+          backward.live_grad_rows(n_features, extra, extra, antialias),
+          args[2].overlap_to_point.shape[0])
+      assert want.abs().amax(dim=1).min() > 0
+      assert_rows_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("n_features", [34, 129])
+def test_wide_visibility_equals_the_backward_row(cuda_device, n_features,
+                                                 antialias):
+  """The wide forward's visibility equals the wide backward's visibility
+  row bit for bit, on bins of every batch shape with saturating tiles."""
+  lengths = (0, 1, *BATCHES, 300, 700, 300)
+  pts, f, mapping, size = _constructed_bins(cuda_device, lengths,
+                                            saturating=(5, 6),
+                                            n_features=n_features)
+  config = RasterConfig(tile_size=16, antialias=antialias)
+  rows = _both_kernels_against_plain(cuda_device, pts, f, mapping, size, config)
+  assert (rows[:, int(mapping.total_overlaps):] == 0).all()
+
+
+@pytest.mark.cuda
+def test_wide_two_runs_identical(cuda_device):
+  """More (tile, group) items than the persistent grid holds at once: the
+  wide image, weight, visibility, front and backward rows are bitwise
+  identical on a second run."""
+  config = RasterConfig(tile_size=16)
+  size = (1280, 960)
+  args = _backward_inputs(cuda_device, config, n=20_000, size=size,
+                          n_features=34)
+  pts, f, mapping = args[:3]
+  a, b = (forward.rasterize_forward(pts, f, mapping, size, config,
+                                    compute_visibility=True, tile_front=True)
+          for _ in range(2))
+  assert all(torch.equal(x, y) for x, y in zip(a, b))
+  kw = dict(compute_point_heuristic=True, vis_row=True)
+  r1, r2 = (backward.rasterize_backward(*args[:3], config, *args[3:], **kw)
+            for _ in range(2))
+  assert torch.equal(r1, r2)
+
+
+@pytest.mark.cuda
+def test_kernels_take_1024_features(cuda_device):
+  """F = 1024 launches (64 forward groups, 32 feature-row groups) with the
+  shared memory of F = 16 and matches plain."""
+  config = RasterConfig(tile_size=16)
+  diff = _kernel_vs_plain(cuda_device, config, n=500, size=(64, 48),
+                          n_features=1024)
+  assert np.quantile(diff, 0.999) <= 1e-4 and diff.max() <= 2e-2
+  args = _backward_inputs(cuda_device, config, n=500, size=(64, 48),
+                          n_features=1024)
+  kw = dict(compute_point_heuristic=True, vis_row=True)
+  got = backward.rasterize_backward(*args[:3], config, *args[3:], **kw)
+  want = backward.raster_backward_plain(*args[:3], config, *args[3:], **kw)
+  assert_rows_close(got, want)

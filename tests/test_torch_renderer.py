@@ -314,7 +314,9 @@ def test_cpu_tensor_takes_the_plain_path():
 @pytest.mark.parametrize("bad", ["float64", "too_many_features", "bad_shape"])
 def test_kernel_input_checks(bad):
   """The checks the CUDA wrapper runs before a launch: float32 only (a
-  float64 CUDA input raises TypeError), (N, F) features with F <= 16."""
+  float64 CUDA input raises TypeError), (N, 7) points and (N, F) features
+  with F >= 1. No width is too many: F = 1024 passes the checks (the
+  kernels blend wide features in channel groups), F = 0 raises."""
   points, depth, feats = scenes.points2d(21, 50, (32, 24), n_features=3)
   pts, f = scenes.to_torch(points, np.float32), scenes.to_torch(feats, np.float32)
   mapping = map_to_tiles(pts, scenes.to_torch(depth, np.float32), (32, 24),
@@ -323,9 +325,9 @@ def test_kernel_input_checks(bad):
     with pytest.raises(TypeError, match="float32"):
       forward._check_cuda_inputs(pts.double(), f, mapping)
   elif bad == "too_many_features":
-    with pytest.raises(ValueError, match="MAX_FEATURES"):
-      forward._check_cuda_inputs(pts, torch.zeros(50, forward.MAX_FEATURES + 1),
-                                 mapping)
+    forward._check_cuda_inputs(pts, torch.zeros(50, 1024), mapping)
+    with pytest.raises(ValueError, match="1 <= F"):
+      forward._check_cuda_inputs(pts, torch.zeros(50, 0), mapping)
   else:
     with pytest.raises(ValueError, match=r"\(N, 7\)"):
       forward._check_cuda_inputs(pts[:, :6].contiguous(), f, mapping)

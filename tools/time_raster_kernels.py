@@ -10,7 +10,10 @@ Frames, at 1M gaussians @2048x1536:
   backward kernel with 9 rows (cotangent image seeded normal, zero weight
   cotangent) and the segment sum of those rows; the forward and the
   backward (10 rows) under the antialiased pdf (bench.py's antialias
-  row);
+  row); the forward and the backward (40 rows) of phase 10's feature
+  field, 32 seeded raw channels and the two depth channels (F = 34),
+  which a checkout whose kernels refuse F > 16 skips (listed under
+  "refused");
 * 2D: 1M random_2d_gaussians (seed 0) on the 2D trainer's frame
   (RasterConfig(compute_point_heuristic=True), F = 3): the forward kernel
   and the backward kernel with the heuristic and visibility rows (12);
@@ -23,11 +26,12 @@ events. --work counts each frame's (pixel, slot) work and adds each
 kernel's bound (ops/raster/bounds.py, which the checkout must have);
 --profile adds torch.profiler's device time of one launch of each
 kernel. --ablate NAME ... also times builds of the checkout's kernels with
-one part cut out by a text substitution (ABLATIONS; the result is wrong,
-the change in time is that part's cost), each built by nvcc into a
-scratch directory; a substitution whose text the checkout lacks is an
-error. One JSON line goes to stdout and, with --out, is appended to that
-file.
+one part cut out by a text substitution at the text's first occurrence
+(the F <= 16 kernels', where the wide ones repeat the text; ABLATIONS;
+the result is wrong, the change in time is that part's cost), each built
+by nvcc into a scratch directory; a substitution whose text the checkout
+lacks is an error. One JSON line goes to stdout and, with --out, is
+appended to that file.
 
     python3 tools/time_raster_kernels.py [--root DIR] [--out FILE] [--work]
         [--profile] [--phase2] [--ablate NAME ...]
@@ -72,6 +76,34 @@ ABLATIONS = {
     "threshold_box": ("raster_common.cuh",
                       "return fabsf(cx - m.x) > e.x || ry > e.y;",
                       "return false;"),
+    # the wide (F > 16) backward's point pass: the cotangent loads of each
+    # batch's D (cut: a constant), D's sums over the boxed slots, ...
+    "wide_cotangent_loads": (
+        "raster_backward.cu",
+        "? grad_image[pix[k] * num_features + f0 + f] : 0.0f;",
+        "? 1.0f : 0.0f;"),
+    "wide_dense_d": (
+        "raster_backward.cu",
+        "for (unsigned todo = inbox; todo != 0; todo &= todo - 1) {",
+        "for (unsigned todo = 0; todo != 0; todo &= todo - 1) {"),
+    # ... its feature slices' staging, its E sums, the feature passes'
+    # transposed reductions, and the feature passes (cut: an empty queue)
+    "wide_feature_slices": (
+        "raster_backward.cu",
+        "stage_feature_slice(features, overlap_to_point, base, count,",
+        "if (false) stage_feature_slice(features, overlap_to_point, base, count,"),
+    "wide_e_sums": (
+        "raster_backward.cu",
+        "for (int f = 0; f < num_features; ++f) E[k] += img[f] * grd[f];",
+        "(void)img; (void)grd;"),
+    "wide_feature_sums": (
+        "raster_backward.cu",
+        "part[lane * part_stride] = transpose_reduce<kRows>(v, lane);",
+        "part[lane * part_stride] = v[0];"),
+    "wide_feature_passes": (
+        "raster_backward.cu",
+        "const int groups = channel_groups(num_features, kRows);",
+        "const int groups = 0;"),
 }
 
 
@@ -170,6 +202,21 @@ def main() -> int:
                                                       SIZE, config_aa)
       bw_aa = (points, features, mapping, config_aa, image_aa, weight_aa,
                g_image, torch.zeros_like(weight_aa))
+      # phase 10's feature field: depth, depth^2 and 32 raw channels
+      _, depths, _ = tgr.project_to_image(scene, camera, config)
+      raw = torch.rand((N, 32), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(10))
+      feats34 = torch.cat([depths, depths * depths, raw], 1)
+      try:
+        image34, weight34 = forward.rasterize_forward(points, feats34, mapping,
+                                                      SIZE, config)
+      except ValueError:
+        result["refused"] = ["forward_3d_34", "backward_3d_34"]
+      else:
+        g_image34 = torch.randn((SIZE[1], SIZE[0], 34), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(11))
+        bw34 = (points, feats34, mapping, config, image34, weight34, g_image34,
+                torch.zeros_like(weight34))
 
       # the 2D trainer's frame
       g2 = random_2d_gaussians(torch.Generator(device=dev).manual_seed(0), N, SIZE)
@@ -200,6 +247,10 @@ def main() -> int:
                                                           SIZE, config2),
           "backward_2d_12_rows": lambda: backward.rasterize_backward(*bw2),
       }
+      if "refused" not in result:
+        calls["forward_3d_34"] = lambda: forward.rasterize_forward(
+            points, feats34, mapping, SIZE, config)
+        calls["backward_3d_34"] = lambda: backward.rasterize_backward(*bw34)
       result["slots"] = {"3d": int(mapping.total_overlaps),
                          "2d": int(mapping2.total_overlaps)}
 
@@ -242,6 +293,11 @@ def main() -> int:
           "backward_2d_12_rows": bounds.backward_bound(
               w2, N, 3, k2, tiles_n, SIZE, False, True, True),
       }
+      if "refused" not in result:
+        result["bounds"].update(
+            forward_3d_34=bounds.forward_bound(w3, N, 34, k3, tiles_n, SIZE, False),
+            backward_3d_34=bounds.backward_bound(w3, N, 34, k3, tiles_n, SIZE,
+                                                 False, False, False))
       for name, b in result["bounds"].items():
         b["share"] = b["ms"] / ms[name]
 
@@ -251,16 +307,16 @@ def main() -> int:
       for name in args.ablate:
         source, old, new = ABLATIONS[name]
         text = (csrc / source).read_text()
-        if text.count(old) != 1:
+        if old not in text:
           raise SystemExit(f"ablation {name}: {source} under {root} does not "
-                           f"hold its text once")
+                           f"hold its text")
         # a header reaches both raster kernels
         touched = {s: k for s, k in kernels.items()
                    if source.endswith(".cuh") or s == source}
         with tempfile.TemporaryDirectory() as tmp:
           tmp = pathlib.Path(tmp)
           shutil.copytree(csrc, tmp / "csrc")
-          (tmp / "csrc" / source).write_text(text.replace(old, new))
+          (tmp / "csrc" / source).write_text(text.replace(old, new, 1))
           intact = {s: k._fn for s, k in touched.items()}
           cuda_build.CSRC_DIR, cuda_build.BUILD_DIR = tmp / "csrc", tmp / "build"
           try:
