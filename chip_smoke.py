@@ -11,8 +11,9 @@ image-fitting trainer, `fit`, growing to 1M gaussians on a 2048x1536
 target, and the trained-scene path: a 1M-gaussian trained-like scene
 loaded from a 3DGS `.ply`, served and trained with saturation-front
 truncation, the multi-GPU module `parallel/` on a one-rank NCCL world,
-and a feature-field frame of 34 blended channels, past the register
-kernels' 16. Phases, each printing its lines:
+a feature-field frame of 34 blended channels, past the register
+kernels' 16, and tile sizes of 12 and 40 pixels. Phases, each printing
+its lines:
 
 1. build -- nvcc builds csrc/raster_forward.cu, raster_backward.cu and
    segment_sum.cu for sm_90a, one process each, all at once; prints the
@@ -138,6 +139,16 @@ kernels' 16. Phases, each printing its lines:
    finite, the forward and backward on 64 seeded tiles against plain,
    and both kernels' times beside their bounds. The JSON line's launches,
    errors, times and bounds are this phase's 34-channel frame's.
+11. tile sizes at full size -- phase 3's scene, RGB and the feature field
+   (32 seeded raw channels + render_depth, 34 blended), with
+   `RasterConfig(tile_size=12)` (tiles that are not whole warps: blocks
+   padded with idle lanes) and `tile_size=40` (tiles larger than a block:
+   pixel chunks): a serving render and a training step through
+   `render_gaussians`, the counts set to 0 before them and read after
+   (one launch of each kernel a step, two forwards in all); finite
+   output, finite non-zero gradients on all five tensors; the forward and
+   the backward rows on 64 seeded tiles against the plain versions; each
+   kernel's time beside its bound.
 
 Truncation is exact, so phase 8 holds the truncated frame to the
 untruncated one bit for bit: it keeps each tile's bin up to where every
@@ -161,7 +172,7 @@ Tolerances (float32, kernel against plain on the same inputs):
 * forward visibility: the forward's tolerances above, on the per-slot
   sums.
 
-Phases 2b, 2c, 3, 4b, 5, 8 and 10 print each kernel's bound beside its time: the
+Phases 2b, 2c, 3, 4b, 5, 8, 10 and 11 print each kernel's bound beside its time: the
 larger of its bytes over the card's memory rate and its FP32 operations
 over the card's FP32 rate, the operations counted on the (pixel, slot)
 pairs of the phase's own frame whose alpha passes the threshold
@@ -866,6 +877,36 @@ def parallel_paths(args, dev, card, kernels, scene, camera):
     dist.destroy_process_group()
 
 
+def hold_forward_tiles(label, points, features, mapping, config, size, ids,
+                       image, weight):
+  """The kernel's image and weight on the tiles `ids` against the plain
+  version's (forward tolerance, blending). Returns the max |diff|."""
+  from taichi_gaussian_rasterizer_tpu_torch.ops.raster import forward, tiles
+  ids_dev = ids.to(points.device)
+  inside = tiles.image_to_tiles(
+      torch.ones(size[1], size[0], 1, device=points.device), mapping.tile_shape,
+      config.tile_size)[ids_dev] > 0
+  got = tiles.image_to_tiles(torch.cat([image, weight[..., None]], -1),
+                             mapping.tile_shape, config.tile_size)[ids_dev]
+  want_img, want_w = forward.rasterize_tiles_plain(points, features, mapping,
+                                                   config, tile_ids=ids.tolist())
+  return check_close(label, got, torch.cat([want_img, want_w[:, None]], 1)
+                     * inside, blending=True)
+
+
+def hold_backward_tiles(label, bw, ids):
+  """The backward kernel's slot rows of the tiles `ids` against the plain
+  version's (backward tolerance). Returns (the kernel's rows, max |diff|)."""
+  from taichi_gaussian_rasterizer_tpu_torch.ops.raster import backward
+  mapping = bw[2]
+  slots = backward.rasterize_backward(*bw)
+  want = backward.raster_backward_plain(*bw, tile_ids=ids.tolist())
+  sel = torch.zeros(slots.shape[1], dtype=torch.bool, device=slots.device)
+  for start, end in mapping.tile_ranges[ids.to(slots.device)].tolist():
+    sel[start:end] = True
+  return slots, check_rows(label, slots[:, sel], want[:, sel])
+
+
 def feature_field(args, dev, card, kernels, scene, camera):
   """Phase 10: the feature-field frame at full size (module docstring).
   Returns the JSON line's entry of each kernel, measured on this frame."""
@@ -954,25 +995,13 @@ def feature_field(args, dev, card, kernels, scene, camera):
     assert torch.equal(image[..., 2:], r.image), "the render's image differs"
     n_tiles = mapping.tile_ranges.shape[0]
     ids = torch.randperm(n_tiles, generator=torch.Generator().manual_seed(66))[:64]
-    ids_dev = ids.to(dev)
-    inside = tiles.image_to_tiles(torch.ones(height, width, 1, device=dev),
-                                  mapping.tile_shape, config.tile_size)[ids_dev] > 0
 
     def hold_forward(label, f, img, w):
-      got = tiles.image_to_tiles(torch.cat([img, w[..., None]], -1),
-                                 mapping.tile_shape, config.tile_size)[ids_dev]
-      want_img, want_w = forward.rasterize_tiles_plain(points, f, mapping, config,
-                                                       tile_ids=ids.tolist())
-      return check_close(label, got, torch.cat([want_img, want_w[:, None]], 1)
-                         * inside, blending=True)
+      return hold_forward_tiles(label, points, f, mapping, config, size, ids,
+                                img, w)
 
     def hold_backward(label, bw):
-      slots = backward.rasterize_backward(*bw)
-      want = backward.raster_backward_plain(*bw, tile_ids=ids.tolist())
-      sel = torch.zeros(slots.shape[1], dtype=torch.bool, device=dev)
-      for start, end in mapping.tile_ranges[ids_dev].tolist():
-        sel[start:end] = True
-      return slots, check_rows(label, slots[:, sel], want[:, sel])
+      return hold_backward_tiles(label, bw, ids)
 
     fwd_err = hold_forward(f"64 seeded tiles, F = {blended} forward vs plain",
                            feats, image, weight)
@@ -1069,6 +1098,89 @@ def feature_field(args, dev, card, kernels, scene, camera):
       "segment_sum": (launches["segment_sum"], seg_err, seg_ms, seg_plain_ms,
                       seg_bound, seg_library_ms),
   }
+
+
+def tile_sizes(args, dev, card, kernels, scene, camera):
+  """Phase 11: phase 3's scene at tile sizes that are not whole warps (12)
+  or larger than a block (40), RGB and the 34-channel feature field
+  (module docstring)."""
+  import taichi_gaussian_rasterizer_tpu_torch as tgr
+  from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
+      backward, bounds, forward)
+
+  width, height = args.size
+  size = (width, height)
+  n = scene.position.shape[0]
+  field = dataclasses.replace(scene, feature=torch.rand(
+      (n, 32), generator=torch.Generator(device=dev).manual_seed(12), device=dev))
+  gen_g = torch.Generator(device=dev).manual_seed(13)
+  for tile_size in (12, 40):
+    config = tgr.RasterConfig(tile_size=tile_size)
+    for label, gaussians, kw in (("RGB", scene, {}),
+                                 ("F = 34", field,
+                                  dict(use_sh=False, render_depth=True))):
+      for k in kernels.values():
+        k.launch_count = 0
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      with torch.no_grad():
+        r = tgr.render_gaussians(gaussians, camera, config, **kw)
+      torch.cuda.synchronize()
+      frame_ms = (time.perf_counter() - t0) * 1e3
+      assert torch.isfinite(r.image).all() and torch.isfinite(r.image_weight).all()
+      params = {f.name: getattr(gaussians, f.name).detach().clone().requires_grad_()
+                for f in dataclasses.fields(tgr.Gaussians3D)}
+      g_image = torch.randn(tuple(r.image.shape), generator=gen_g, device=dev)
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      rt = tgr.render_gaussians(tgr.Gaussians3D(**params), camera, config, **kw)
+      loss = (rt.image * g_image).sum()
+      if kw:
+        loss = loss + rt.depth.sum()
+      loss.backward()
+      torch.cuda.synchronize()
+      step_ms = (time.perf_counter() - t0) * 1e3
+      check_grads(f"tile {tile_size} {label} step",
+                  {name: p.grad for name, p in params.items()})
+      launches = {name: k.launch_count for name, k in kernels.items()}
+      assert launches == {"raster_forward": 2, "raster_backward": 1,
+                          "segment_sum": 1}, launches
+      del rt, params, loss
+      with torch.no_grad():
+        points, mapping = project_and_map(gaussians, camera, config)
+        feats = gaussians.feature
+        if kw:
+          _, depths, _ = tgr.project_to_image(gaussians, camera, config)
+          feats = torch.cat([depths, depths * depths, feats], 1)
+        f = feats.shape[1]
+        image, weight = forward.rasterize_forward(points, feats, mapping, size,
+                                                  config)
+        ids = torch.randperm(mapping.tile_ranges.shape[0],
+                             generator=torch.Generator().manual_seed(67))[:64]
+        hold_forward_tiles(f"tile {tile_size} {label}: 64 seeded tiles, forward "
+                           f"vs plain", points, feats, mapping, config, size,
+                           ids, image, weight)
+        bw = (points, feats, mapping, config, image, weight,
+              torch.randn((height, width, f), generator=gen_g, device=dev),
+              torch.zeros_like(weight))
+        hold_backward_tiles(f"tile {tile_size} {label}: 64 seeded tiles, "
+                            f"backward vs plain", bw, ids)
+        fwd_ms = cuda_ms(lambda: forward.rasterize_forward(
+            points, feats, mapping, size, config), reps=5)
+        bwd_ms = cuda_ms(lambda: backward.rasterize_backward(*bw), reps=3)
+        work = bounds.raster_work(points, mapping, config, size)
+        k = int(mapping.total_overlaps)
+        n_tiles = mapping.tile_ranges.shape[0]
+        fwd_bound = bounds.forward_bound(work, n, f, k, n_tiles, size,
+                                         config.antialias)
+        bwd_bound = bounds.backward_bound(work, n, f, k, n_tiles, size,
+                                          config.antialias, False, False)
+      print(f"  tile {tile_size}, {label}: launches in a render and a training "
+            f"step {launches}; render {frame_ms:.3f} ms, step {step_ms:.3f} ms "
+            f"(host clock, one each); forward kernel {fwd_ms:.4f} ms, "
+            f"{bound_line(fwd_bound, fwd_ms)}; backward kernel {bwd_ms:.4f} ms, "
+            f"{bound_line(bwd_bound, bwd_ms)} (CUDA events; {card})")
+      del image, weight, bw, points, mapping, feats
 
 
 def main() -> int:
@@ -1631,6 +1743,10 @@ def main() -> int:
   # its kernels' launches, errors, times and bounds make the JSON line; no
   # PyTorch call computes the forward or the backward blend
   measured = feature_field(args, dev, card, kernels, scene, camera)
+
+  # ---- phase 11: tile sizes that are not whole warps or exceed a block -----
+  print(f"[11 tile sizes] phase 3's scene at tiles 12 and 40, RGB and F = 34")
+  tile_sizes(args, dev, card, kernels, scene, camera)
   print(card_line())
   print(json.dumps({"kernels": [
       {"name": name, "route": "cuda", "source": KERNELS[name][0],

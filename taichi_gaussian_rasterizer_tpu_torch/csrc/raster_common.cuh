@@ -26,7 +26,7 @@
 namespace tgr {
 
 // feature channels the register-resident instances hold a pixel's
-// accumulators for; wider F takes the channel-group instances below
+// accumulators for; wider F takes the wide instances below
 constexpr int kRegisterFeatures = 16;
 constexpr int kPointRows = 7;   // staged floats per point (see stage_point)
 constexpr int kStageStride = 8; // floats a staged point takes: two 16-byte loads
@@ -189,25 +189,28 @@ __device__ __forceinline__ void stage_batch(
   }
 }
 
-// ---- the channel-group (wide) instances: any F ----------------------------
+// ---- the wide instances (F > kRegisterFeatures): products of a batch ---
 //
-// Past kRegisterFeatures a kernel cannot keep a pixel's F accumulators (or
-// cotangents) in registers, nor stage all F channels of a batch in shared
-// memory for every F. The wide instances split the channels into groups
-// and replay each tile's blend once per group: the weights do not depend
-// on the features, and every replay runs the same staging, pdf, gate and
-// transmittance code, so each replay gates every (pixel, slot) pair
-// exactly as the others do. A launch's work items are (tile, group)
-// pairs, the groups of one tile consecutive in the queue, so that the
-// blocks replaying one bin run at about the same time and share its reads
-// in L2. The wide instances take two pixels a thread, the layout
-// pixels_per_thread gives for every F > kSmallFeatures, which the visibility
-// sums of both kernels share.
-constexpr int kWidePPT = 2;
+// Past kRegisterFeatures a thread cannot keep a pixel's F accumulators (or
+// cotangents) in registers next to the replay. The wide instances replay
+// each tile's bin once (the forward once a chunk of up to 48 channels) in
+// batches of kWideBatch slots; the replay runs the same staging, pdf, gate
+// and transmittance code as the register instances and writes each
+// (pixel, slot) pair's gated weight W (0 where the pair is gated off) to
+// shared memory. The channel sums are then products of a batch, tiled
+// from shared memory: the forward's image += W F_batch, the backward's D =
+// G F_batch^T and feature rows W^T G (G the tile's cotangents). A warp's
+// 32 threads own 32 * kWidePPT pixels: the wide instances take one pixel a
+// thread (kWidePPT), in blocks of at most kWideMaxThreads, a layout the
+// forward's and the backward's visibility sums share; a pixel's image
+// accumulators (the forward) take registers, so one pixel a thread keeps
+// a thread's registers, and the blocks an SM holds, near the register
+// instances'.
+constexpr int kWidePPT = 1;
+constexpr int kWideBatch = 32;        // slots a batch: one 32-bit box mask
+constexpr int kWarpPixels = 32 * kWidePPT;
 
-__host__ __device__ constexpr int channel_groups(int num_features, int group) {
-  return (num_features + group - 1) / group;
-}
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Stage slots [base, base + count) of the tile's bin as columns of s_pt
 // and s_ext, as stage_batch does, without their features.
@@ -225,17 +228,21 @@ __device__ __forceinline__ void stage_points(
   }
 }
 
-// Stage channels [first, first + width) of slots [base, base + count) as
-// s_feat ([width][batch]); the block's threads take (slot, channel) pairs
-// in turn, so a slot's channels are read as one contiguous run.
-__device__ __forceinline__ void stage_feature_slice(
+// Stage channels [first, first + width) of the batch's slots as the rows
+// of s_feat ([kWideBatch][stride], slot-major), zero past the count slots
+// and past the width up to `padded` channels: every entry a product reads
+// is finite. The block's threads take (slot, channel) pairs in turn, so a
+// slot's channels are read as one contiguous run.
+__device__ __forceinline__ void stage_feature_rows(
     const float* __restrict__ features, const int* __restrict__ overlap_to_point,
-    int base, int count, int num_features, int first, int width, float* s_feat,
-    int batch) {
-  for (int e = threadIdx.x; e < count * width; e += blockDim.x) {
-    const int j = e / width, f = e - j * width;
-    s_feat[f * batch + j] = features[
-        static_cast<long long>(overlap_to_point[base + j]) * num_features + first + f];
+    int base, int count, int num_features, int first, int width, int padded,
+    float* s_feat, int stride) {
+  for (int e = threadIdx.x; e < kWideBatch * padded; e += blockDim.x) {
+    const int j = e / padded, f = e - j * padded;
+    s_feat[j * stride + f] = j < count && f < width
+        ? features[static_cast<long long>(overlap_to_point[base + j]) * num_features
+                   + first + f]
+        : 0.0f;
   }
 }
 
@@ -311,25 +318,81 @@ __device__ __forceinline__ bool stopped(float T, float stop) {
   return !(one_minus(T) < stop);
 }
 
-// ---- the block's layout: several pixels a thread ------------------------
+// ---- the block's layout: several pixels a thread, in pixel chunks -------
 //
-// A block of ts * ceil(ts / ppt) threads covers a ts x ts tile; thread t
-// owns the ppt pixels of column t % ts in rows (t / ts) * ppt + k, k < ppt
-// (rows past the tile are masked). A warp thus covers a compact band of
-// the tile, and a thread loads each staged point once for its ppt pixels
-// and adds its pixels' values in registers before any cross-lane step.
-// Four pixels a thread where a warp stays whole and the feature registers
-// allow it, two otherwise: every tile of whole warps (ts a multiple of 8)
-// then gives whole warps. The forward and backward kernels take the same
-// layout for the same (tile size, F), which the per-slot sums below rely on.
+// A block covers a ts x ts tile in chunks of at most one block: thread t of
+// a chunk owns the ppt pixels of column cx0 + t % cols in rows cy0 + (t /
+// cols) * ppt + k, k < ppt (pixels past the tile are masked). A warp thus
+// covers a compact band of the tile, and a thread loads each staged point
+// once for its ppt pixels and adds its pixels' values in registers before
+// any cross-lane step. A tile that fits in one block (ts x ceil(ts / ppt)
+// threads within the kernel's launch bound) is one chunk; a larger one is
+// covered in chunks of `groups` row groups (and of at most the launch
+// bound's columns), one after the other, and a per-slot sum over the tile
+// is the chunks' sums added in chunk order. The block is padded to whole
+// warps with threads that own no pixel: they are done from the start and
+// add +0 to every sum, so every live pixel keeps its sum order. Four pixels
+// a thread where the tile is whole warps of four and the feature registers
+// allow it, two otherwise; the F > 16 (wide) instances one, in blocks of
+// at most kWideMaxThreads. Tiles of 8, 16 and 32 pixels are one chunk of
+// whole warps in every instance but the wide ones at 32 (four chunks). The
+// forward and backward kernels take the same layout for the same (tile
+// size, F), which the per-slot sums below rely on.
 constexpr int kSmallFeatures = 4;   // feature registers of the F <= 4 instances
+constexpr int kWideMaxThreads = 256;
 
 __host__ __device__ constexpr int pixels_per_thread(int tile_size, int num_features) {
   return num_features <= kSmallFeatures && (tile_size * tile_size) % 128 == 0 ? 4 : 2;
 }
 
-__host__ __device__ constexpr int block_threads(int tile_size, int ppt) {
-  return tile_size * ((tile_size + ppt - 1) / ppt);
+// the launch bound of the F <= 16 instances with ppt pixels a thread
+__host__ __device__ constexpr int max_block_threads(int ppt) {
+  return ppt == 4 ? 256 : 512;
+}
+
+struct TileLayout {
+  int cols;       // tile columns a chunk covers
+  int groups;     // row groups of ppt rows a chunk covers
+  int chunks_x;   // chunks across the tile
+  int chunks;     // chunks in all
+  int threads;    // the block: cols * groups, padded to whole warps
+};
+
+__host__ __device__ inline TileLayout tile_layout(int tile_size, int ppt,
+                                                  int max_threads) {
+  TileLayout l;
+  l.cols = tile_size < max_threads ? tile_size : max_threads;
+  const int row_groups = (tile_size + ppt - 1) / ppt;
+  const int fit = max_threads / l.cols;
+  l.groups = row_groups < fit ? row_groups : fit;
+  l.chunks_x = (tile_size + l.cols - 1) / l.cols;
+  const int rows = l.groups * ppt;
+  l.chunks = l.chunks_x * ((tile_size + rows - 1) / rows);
+  l.threads = (l.cols * l.groups + 31) / 32 * 32;
+  return l;
+}
+
+// The tile-local column and first row of thread `tid`'s pixels in chunk
+// `chunk`; `owner` is false for a padding thread or a column past the tile.
+struct ChunkPixels {
+  int lx, ly0;
+  bool owner;
+};
+
+__device__ __forceinline__ ChunkPixels chunk_pixels(const TileLayout& l, int chunk,
+                                                    int tid, int ppt, int tile_size) {
+  const int col = tid % l.cols, grp = tid / l.cols;
+  ChunkPixels c;
+  c.lx = (chunk % l.chunks_x) * l.cols + col;
+  c.ly0 = (chunk / l.chunks_x) * l.groups * ppt + grp * ppt;
+  c.owner = grp < l.groups && c.lx < tile_size;
+  return c;
+}
+
+// A per-slot sum over the tile: the first chunk writes it, later chunks
+// add theirs in chunk order (one thread writes a slot in every chunk).
+__device__ __forceinline__ void chunk_store(float* dst, float x, bool first_chunk) {
+  *dst = first_chunk ? x : __fadd_rn(*dst, x);
 }
 
 // ---- per-slot sums over a tile's pixels, without atomics ---------------
@@ -338,7 +401,8 @@ __host__ __device__ constexpr int block_threads(int tile_size, int ppt) {
 // k order, starting from 0 (a pixel that adds nothing is skipped, which is
 // the same as adding +0 for the non-negative visibility weights); then over
 // the warp's lanes by a butterfly of xor offsets 16, 8, 4, 2, 1; then over
-// the warps in warp order, starting from 0 (block_slot_sum). Two runs are
+// the warps in warp order, starting from 0 (block_slot_sum); then over a
+// large tile's pixel chunks in chunk order (chunk_store). Two runs are
 // therefore bitwise identical, and the forward's visibility (warp_sum_xor,
 // one row) equals the backward's visibility row (transpose_reduce, all rows
 // at once) bit for bit: both add the same pairs at every level, and a
@@ -414,7 +478,7 @@ __device__ __forceinline__ int next_tile(int* tile_counter, const int* tile_orde
 
 // The next work item of a queue of num_items, or -1 once it is empty;
 // uniform over the block (next_tile without the tile order, for the wide
-// instances' (tile, group) items).
+// forward's (tile, channel chunk) items).
 __device__ __forceinline__ int next_item(int* counter, int num_items, int* s_slot) {
   __syncthreads();
   if (threadIdx.x == 0) *s_slot = atomicAdd(counter, 1);
@@ -425,7 +489,7 @@ __device__ __forceinline__ int next_item(int* counter, int num_items, int* s_slo
 
 // The persistent grid of a launch: as many blocks of `kernel` as fit on the
 // device at once, at most num_tiles (the queue's length: tiles, or the wide
-// instances' (tile, group) items). Sets the dynamic shared memory the
+// forward's (tile, channel chunk) items). Sets the dynamic shared memory the
 // kernel needs and zeroes the tile counter on the stream. The occupancy
 // query is made once per (kernel, block size, shared memory, device) and
 // cached: a launch costs little more host time than a plain one.

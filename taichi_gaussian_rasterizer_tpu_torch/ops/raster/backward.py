@@ -40,7 +40,7 @@ import torch
 from ...config import RasterConfig
 from ...utils.cuda_build import CudaKernel
 from ..mapper import TileMapping
-from .forward import _check_cuda_inputs, _pdf_alpha
+from .forward import _check_cuda_inputs, _check_tile_size, _pdf_alpha
 from .tiles import image_to_tiles
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -218,11 +218,7 @@ def _check_backward_inputs(points, features, mapping, config, image, weight,
     if tuple(t.shape) != shape or not t.is_contiguous():
       raise ValueError(f"{name} must be a contiguous {shape}, got "
                        f"{tuple(t.shape)}")
-  ts = config.tile_size
-  if ts * ts > 1024 or (ts * ts) % 32:
-    raise ValueError(f"tile_size {ts}: the CUDA backward kernel takes square "
-                     "tiles of whole warps (tile_size**2 a multiple of 32, at "
-                     "most 1024)")
+  _check_tile_size(config)
 
 
 def raster_backward_cuda(points: torch.Tensor, features: torch.Tensor,
@@ -232,9 +228,10 @@ def raster_backward_cuda(points: torch.Tensor, features: torch.Tensor,
                          compute_point_heuristic: bool = False,
                          vis_row: bool = False) -> torch.Tensor:
   """Launch the CUDA kernel: float32 only, (N, F) features of any width
-  F >= 1 (past 16 channels, a pass for the point, heuristic and visibility
-  rows, then one a group of 32 feature rows), tile_size**2 a multiple of
-  32 and at most 1024 (whole warps). Returns the (R, K) slot rows."""
+  F >= 1 (past 16 channels, one replay of each tile, the channel sums D
+  and the feature rows as products of a batch), any tile_size >= 1 (a
+  tile larger than a block is covered in pixel chunks). Returns the (R, K)
+  slot rows."""
   _check_backward_inputs(points, features, mapping, config, image, weight,
                          grad_image, grad_weight)
   ts = config.tile_size

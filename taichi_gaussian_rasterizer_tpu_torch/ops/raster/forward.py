@@ -223,22 +223,25 @@ def _check_cuda_inputs(points, features, mapping):
                      f"1 <= F, got {tuple(features.shape)}")
 
 
+def _check_tile_size(config: RasterConfig) -> int:
+  ts = config.tile_size
+  if ts < 1:
+    raise ValueError(f"tile_size {ts}: a tile is at least one pixel")
+  return ts
+
+
 def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
                          mapping: TileMapping, image_size: Tuple[int, int],
                          config: RasterConfig, compute_visibility: bool = False,
                          tile_front: bool = False):
   """Launch the CUDA kernel: float32 only, (N, F) features of any width
-  F >= 1 (past 16 channels, one replay of each tile a group of 16),
-  tile_size**2 <= 1024 (a multiple of 32 with compute_visibility).
-  Returns (image (H, W, F), weight (H, W)) [+ per-slot visibility (K,)]
-  [+ saturation front (T,)]."""
+  F >= 1 (past 16 channels, one replay of each tile a chunk of up to 48
+  channels, the channel sums as products of a batch), any tile_size >= 1
+  (a tile larger than a block is covered in pixel chunks). Returns (image
+  (H, W, F), weight (H, W)) [+ per-slot visibility (K,)] [+ saturation
+  front (T,)]."""
   _check_cuda_inputs(points, features, mapping)
-  ts = config.tile_size
-  if ts * ts > 1024:
-    raise ValueError(f"tile_size {ts}: the CUDA kernel takes at most 32x32 tiles")
-  if compute_visibility and (ts * ts) % 32:
-    raise ValueError(f"tile_size {ts}: the CUDA kernel's visibility takes "
-                     "tiles of whole warps (tile_size**2 a multiple of 32)")
+  ts = _check_tile_size(config)
   w, h = image_size
   th, tw = mapping.tile_shape
   image = torch.empty((h, w, features.shape[1]), dtype=torch.float32,

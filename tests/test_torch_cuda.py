@@ -328,14 +328,26 @@ def test_forward_visibility_equals_the_sink_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_forward_visibility_needs_whole_warps(cuda_device):
-  pts, depth, f = _scene(cuda_device, 100, (32, 24), 3)
+def test_forward_visibility_at_tile_4_matches_plain(cuda_device):
+  """Tile 4 (16 pixels, half a warp) with visibility launches, in a block
+  padded to a whole warp, and matches plain."""
+  size = (32, 24)
+  pts, depth, f = _scene(cuda_device, 100, size, 3)
   config = RasterConfig(tile_size=4)
-  mapping = map_to_tiles(pts, depth, (32, 24), config)
-  forward.rasterize_forward(pts, f, mapping, (32, 24), config)   # no visibility: fine
-  with pytest.raises(ValueError, match="whole warps"):
-    forward.rasterize_forward(pts, f, mapping, (32, 24), config,
-                              compute_visibility=True)
+  mapping = map_to_tiles(pts, depth, size, config)
+  before = forward.RASTER_FORWARD.launch_count
+  image, weight, vis = forward.rasterize_forward(pts, f, mapping, size, config,
+                                                 compute_visibility=True)
+  torch.cuda.synchronize()
+  assert forward.RASTER_FORWARD.launch_count == before + 1
+  want_img, want_w, want_vis = forward.rasterize_tiles_plain(
+      pts, f, mapping, config, visibility_image_size=size)
+  want = tiles.tiles_to_image(torch.cat([want_img, want_w[:, None]], 1),
+                              mapping.tile_shape, 4, size)
+  diff = (torch.cat([image, weight[..., None]], -1) - want).abs()
+  assert float(diff.max()) <= 2e-2
+  scale = float(want_vis.abs().max())
+  assert scale > 0 and float((vis - want_vis).abs().max()) <= 1e-2 * scale
 
 
 @pytest.mark.cuda
@@ -714,7 +726,7 @@ def test_wide_visibility_equals_the_backward_row(cuda_device, n_features,
 
 @pytest.mark.cuda
 def test_wide_two_runs_identical(cuda_device):
-  """More (tile, group) items than the persistent grid holds at once: the
+  """More (tile, channel chunk) items than the persistent grid holds at once: the
   wide image, weight, visibility, front and backward rows are bitwise
   identical on a second run."""
   config = RasterConfig(tile_size=16)
@@ -734,8 +746,8 @@ def test_wide_two_runs_identical(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_take_1024_features(cuda_device):
-  """F = 1024 launches (64 forward groups, 32 feature-row groups) with the
-  shared memory of F = 16 and matches plain."""
+  """F = 1024 launches (22 forward channel chunks, 16 feature slices of
+  the backward's D) with bounded shared memory and matches plain."""
   config = RasterConfig(tile_size=16)
   diff = _kernel_vs_plain(cuda_device, config, n=500, size=(64, 48),
                           n_features=1024)
@@ -746,3 +758,62 @@ def test_kernels_take_1024_features(cuda_device):
   got = backward.rasterize_backward(*args[:3], config, *args[3:], **kw)
   want = backward.raster_backward_plain(*args[:3], config, *args[3:], **kw)
   assert_rows_close(got, want)
+
+
+# ---- every tile size: blocks padded to whole warps, tiles in pixel chunks --
+
+ODD_TILES = (1, 4, 12, 24, 40, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_features", [3, 16, 17, 34, 129])
+@pytest.mark.parametrize("tile_size", ODD_TILES)
+def test_kernels_at_any_tile_size(cuda_device, tile_size, n_features):
+  """Tiles that are not whole warps (1, 4, 12, 24) or larger than a block
+  (40, 64: pixel chunks), in the register (F = 3, 16) and wide (17, 34,
+  129) instances: the forward in all four modes, with visibility and with
+  tile_front, and the backward with and without the heuristic and
+  visibility rows, against plain at the tolerances above; the forward's
+  visibility equals the backward's visibility row bit for bit; two runs
+  are bitwise identical; one launch each."""
+  size = (200, 120)
+  for antialias in (False, True):
+    for blending in (True, False):
+      config = RasterConfig(tile_size=tile_size, antialias=antialias,
+                            use_alpha_blending=blending)
+      diff = _kernel_vs_plain(cuda_device, config, size=size,
+                              n_features=n_features)
+      assert np.quantile(diff, 0.999) <= 1e-4, (antialias, blending)
+      if blending:
+        assert diff.max() <= 2e-2, (antialias, blending)
+  for antialias in (False, True):
+    config = RasterConfig(tile_size=tile_size, antialias=antialias)
+    args = _backward_inputs(cuda_device, config, size=size, n_features=n_features)
+    pts, f, mapping = args[:3]
+    before = (forward.RASTER_FORWARD.launch_count,
+              backward.RASTER_BACKWARD.launch_count)
+    _both_kernels_against_plain(cuda_device, pts, f, mapping, size, config)
+    rows = backward.rasterize_backward(*args[:3], config, *args[3:])
+    torch.cuda.synchronize()
+    assert (forward.RASTER_FORWARD.launch_count,
+            backward.RASTER_BACKWARD.launch_count) == (before[0] + 1, before[1] + 2)
+    want = backward.raster_backward_plain(*args[:3], config, *args[3:])
+    assert rows.shape == want.shape == (
+        backward.live_grad_rows(n_features, False, False, antialias),
+        mapping.overlap_to_point.shape[0])
+    assert want.abs().amax(dim=1).min() > 0
+    assert_rows_close(rows, want)
+    kw = dict(compute_point_heuristic=True, vis_row=True)
+    assert torch.equal(*(backward.rasterize_backward(*args[:3], config, *args[3:], **kw)
+                         for _ in range(2)))
+    runs = [forward.rasterize_forward(pts, f, mapping, size, config,
+                                      compute_visibility=True, tile_front=True)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    front = runs[0][-1]
+    plain = forward.rasterize_tiles_plain(pts, f, mapping, config,
+                                          front_image_size=size)[-1]
+    bins = mapping.tile_ranges[:, 1] - mapping.tile_ranges[:, 0]
+    differ = int((front != plain).sum())
+    assert differ <= max(1, int(0.01 * int((bins > 0).sum()))), differ
+    assert (front[bins == 0] == 0).all()

@@ -311,12 +311,14 @@ def test_cpu_tensor_takes_the_plain_path():
                                    (40, 24))[..., 0], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bad", ["float64", "too_many_features", "bad_shape"])
+@pytest.mark.parametrize("bad", ["float64", "too_many_features", "bad_shape",
+                                 "tile_size"])
 def test_kernel_input_checks(bad):
   """The checks the CUDA wrapper runs before a launch: float32 only (a
   float64 CUDA input raises TypeError), (N, 7) points and (N, F) features
-  with F >= 1. No width is too many: F = 1024 passes the checks (the
-  kernels blend wide features in channel groups), F = 0 raises."""
+  with F >= 1, tile_size >= 1. No width is too many: F = 1024 passes the
+  checks (the kernels blend wide features in channel chunks), F = 0
+  raises; no tile is too large or too small but an empty one."""
   points, depth, feats = scenes.points2d(21, 50, (32, 24), n_features=3)
   pts, f = scenes.to_torch(points, np.float32), scenes.to_torch(feats, np.float32)
   mapping = map_to_tiles(pts, scenes.to_torch(depth, np.float32), (32, 24),
@@ -328,6 +330,11 @@ def test_kernel_input_checks(bad):
     forward._check_cuda_inputs(pts, torch.zeros(50, 1024), mapping)
     with pytest.raises(ValueError, match="1 <= F"):
       forward._check_cuda_inputs(pts, torch.zeros(50, 0), mapping)
+  elif bad == "tile_size":
+    for ts in (1, 4, 12, 40, 64):
+      assert forward._check_tile_size(RasterConfig(tile_size=ts)) == ts
+    with pytest.raises(ValueError, match="at least one pixel"):
+      forward._check_tile_size(RasterConfig(tile_size=0))
   else:
     with pytest.raises(ValueError, match=r"\(N, 7\)"):
       forward._check_cuda_inputs(pts[:, :6].contiguous(), f, mapping)

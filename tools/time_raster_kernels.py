@@ -4,22 +4,24 @@ frames, for the checkout of the port under --root, so that two versions
 of the kernels can be held side by side in one call on one card (run them
 in turns: parent, change, change, parent).
 
-Frames, at 1M gaussians @2048x1536:
-* 3D: chip_smoke.py phases 3 and 5 (bench.py's recipe, RGB,
-  RasterConfig()): the forward kernel without and with visibility, the
-  backward kernel with 9 rows (cotangent image seeded normal, zero weight
-  cotangent) and the segment sum of those rows; the forward and the
-  backward (10 rows) under the antialiased pdf (bench.py's antialias
-  row); the forward and the backward (40 rows) of phase 10's feature
-  field, 32 seeded raw channels and the two depth channels (F = 34),
-  which a checkout whose kernels refuse F > 16 skips (listed under
-  "refused");
+Frames, at 1M gaussians @2048x1536, with tiles of --tile-size pixels
+(default 16, RasterConfig()'s):
+* 3D: chip_smoke.py phases 3 and 5 (bench.py's recipe, RGB): the forward
+  kernel without and with visibility, the backward kernel with 9 rows
+  (cotangent image seeded normal, zero weight cotangent) and the segment
+  sum of 9 seeded rows; the forward and the backward (10 rows) under the
+  antialiased pdf (bench.py's antialias row); the forward and the
+  backward of phase 10's feature field, 32 seeded raw channels and the
+  two depth channels (F = 34), and of 17, 64 and 128 seeded raw channels
+  (the wide instances);
 * 2D: 1M random_2d_gaussians (seed 0) on the 2D trainer's frame
-  (RasterConfig(compute_point_heuristic=True), F = 3): the forward kernel
-  and the backward kernel with the heuristic and visibility rows (12);
+  (compute_point_heuristic, F = 3): the forward kernel and the backward
+  kernel with the heuristic and visibility rows (12);
 * with --phase2, chip_smoke.py phase 2's saturating frame instead: the
   forward in its four modes without and with visibility, the backward
   conic and antialiased.
+A call that the checkout's kernels refuse (a tile size or a width an
+older checkout does not take) is listed under "refused" with its error.
 
 Each time is the mean of 20 launches after two warm-up launches, by CUDA
 events. --work counts each frame's (pixel, slot) work and adds each
@@ -34,7 +36,7 @@ lacks is an error. One JSON line goes to stdout and, with --out, is
 appended to that file.
 
     python3 tools/time_raster_kernels.py [--root DIR] [--out FILE] [--work]
-        [--profile] [--phase2] [--ablate NAME ...]
+        [--profile] [--phase2] [--tile-size N] [--ablate NAME ...]
 """
 
 import argparse
@@ -48,6 +50,7 @@ import tempfile
 import torch
 
 N, SIZE, REPS = 1_000_000, (2048, 1536), 20
+WIDE_FEATURES = (17, 34, 64, 128)
 
 # name: (file under csrc/, text cut, replacement); an ablation rebuilds
 # every raster kernel its file reaches and times that kernel's calls
@@ -76,34 +79,27 @@ ABLATIONS = {
     "threshold_box": ("raster_common.cuh",
                       "return fabsf(cx - m.x) > e.x || ry > e.y;",
                       "return false;"),
-    # the wide (F > 16) backward's point pass: the cotangent loads of each
-    # batch's D (cut: a constant), D's sums over the boxed slots, ...
-    "wide_cotangent_loads": (
+    # the wide (F > 16) kernels: the forward's image product, its replay
+    # (the slot loop blends nothing, so no pixel stops), the backward's D
+    # product, its replay and its feature-row product
+    "wide_forward_product": (
+        "raster_forward.cu",
+        "unsigned todo = __reduce_or_sync(kFullMask, wmask);",
+        "unsigned todo = 0u * wmask;"),
+    "wide_forward_replay": ("raster_forward.cu",
+                            "blend_slot(__ffs(todo) - 1);", "(void)0;"),
+    "wide_backward_d": (
         "raster_backward.cu",
-        "? grad_image[pix[k] * num_features + f0 + f] : 0.0f;",
-        "? 1.0f : 0.0f;"),
-    "wide_dense_d": (
-        "raster_backward.cu",
-        "for (unsigned todo = inbox; todo != 0; todo &= todo - 1) {",
+        "for (unsigned todo = need; todo != 0; todo &= todo - 1) {",
         "for (unsigned todo = 0; todo != 0; todo &= todo - 1) {"),
-    # ... its feature slices' staging, its E sums, the feature passes'
-    # transposed reductions, and the feature passes (cut: an empty queue)
-    "wide_feature_slices": (
+    "wide_backward_replay": (
         "raster_backward.cu",
-        "stage_feature_slice(features, overlap_to_point, base, count,",
-        "if (false) stage_feature_slice(features, overlap_to_point, base, count,"),
-    "wide_e_sums": (
+        "for (int j = 0; j < count; ++j) {\n          float* xj",
+        "for (int j = 0; j < 0; ++j) {\n          float* xj"),
+    "wide_backward_feature_rows": (
         "raster_backward.cu",
-        "for (int f = 0; f < num_features; ++f) E[k] += img[f] * grd[f];",
-        "(void)img; (void)grd;"),
-    "wide_feature_sums": (
-        "raster_backward.cu",
-        "part[lane * part_stride] = transpose_reduce<kRows>(v, lane);",
-        "part[lane * part_stride] = v[0];"),
-    "wide_feature_passes": (
-        "raster_backward.cu",
-        "const int groups = channel_groups(num_features, kRows);",
-        "const int groups = 0;"),
+        "for (int c0 = 4 * quads * warp; c0 < nf; c0 += 4 * quads * n_warps) {",
+        "for (int c0 = nf; c0 < nf; c0 += 4 * quads * n_warps) {"),
 }
 
 
@@ -129,6 +125,8 @@ def main() -> int:
   parser.add_argument("--work", action="store_true")
   parser.add_argument("--profile", action="store_true")
   parser.add_argument("--phase2", action="store_true")
+  parser.add_argument("--tile-size", type=int, default=16,
+                      help="tile size of the 3D and 2D frames")
   parser.add_argument("--ablate", nargs="+", default=(), choices=sorted(ABLATIONS))
   args = parser.parse_args()
   if not torch.cuda.is_available():
@@ -155,6 +153,7 @@ def main() -> int:
   call_prefix = {"raster_forward.cu": "forward_", "raster_backward.cu": "backward_"}
   cuda_build.load_all([*kernels.values(), reduce.SEGMENT_SUM])
   result = {"root": root, "card": chip_smoke.card_line(), "ms": {},
+            "tile_size": args.tile_size,
             "ptxas": {k.source: [l.strip() for l in k.build_log.splitlines()
                                  if "entry function" in l or "registers" in l
                                  or "spill" in l]
@@ -185,7 +184,7 @@ def main() -> int:
     else:
       # the 3D frame
       scene, camera = chip_smoke.bench_scene(N, SIZE, dev)
-      config = tgr.RasterConfig()
+      config = tgr.RasterConfig(tile_size=args.tile_size)
       points, mapping = chip_smoke.project_and_map(scene, camera, config)
       features = scene.feature.contiguous()
       g_image = torch.randn((SIZE[1], SIZE[0], 3), device=dev,
@@ -194,33 +193,36 @@ def main() -> int:
                                                 config)
       bw = (points, features, mapping, config, image, weight, g_image,
             torch.zeros_like(weight))
-      slots = backward.rasterize_backward(*bw)
-      grouped = slots.index_select(
-          1, torch.sort(mapping.overlap_to_point, stable=True)[1])
+      # the segment sum's input: 9 seeded rows over the frame's slots,
+      # grouped by point (its time does not depend on the values)
+      grouped = torch.randn(
+          (9, mapping.overlap_to_point.shape[0]), device=dev,
+          generator=torch.Generator(device=dev).manual_seed(3)).index_select(
+              1, torch.sort(mapping.overlap_to_point, stable=True)[1])
       config_aa = config.replace(antialias=True)
       image_aa, weight_aa = forward.rasterize_forward(points, features, mapping,
                                                       SIZE, config_aa)
       bw_aa = (points, features, mapping, config_aa, image_aa, weight_aa,
                g_image, torch.zeros_like(weight_aa))
-      # phase 10's feature field: depth, depth^2 and 32 raw channels
+      # phase 10's feature field: depth, depth^2 and 32 raw channels (F =
+      # 34), and F = 17, 64, 128 seeded raw channels
       _, depths, _ = tgr.project_to_image(scene, camera, config)
-      raw = torch.rand((N, 32), device=dev,
-                       generator=torch.Generator(device=dev).manual_seed(10))
-      feats34 = torch.cat([depths, depths * depths, raw], 1)
-      try:
-        image34, weight34 = forward.rasterize_forward(points, feats34, mapping,
+      gen_f = torch.Generator(device=dev).manual_seed(10)
+      wide = {}
+      for f in WIDE_FEATURES:
+        raw = torch.rand((N, 32 if f == 34 else f), device=dev, generator=gen_f)
+        feats = torch.cat([depths, depths * depths, raw], 1) if f == 34 else raw
+        image_f, weight_f = forward.rasterize_forward(points, feats, mapping,
                                                       SIZE, config)
-      except ValueError:
-        result["refused"] = ["forward_3d_34", "backward_3d_34"]
-      else:
-        g_image34 = torch.randn((SIZE[1], SIZE[0], 34), device=dev,
+        g_image_f = torch.randn((SIZE[1], SIZE[0], f), device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(11))
-        bw34 = (points, feats34, mapping, config, image34, weight34, g_image34,
-                torch.zeros_like(weight34))
+        wide[f] = (feats, (points, feats, mapping, config, image_f, weight_f,
+                           g_image_f, torch.zeros_like(weight_f)))
 
       # the 2D trainer's frame
       g2 = random_2d_gaussians(torch.Generator(device=dev).manual_seed(0), N, SIZE)
-      config2 = tgr.RasterConfig(compute_point_heuristic=True)
+      config2 = tgr.RasterConfig(tile_size=args.tile_size,
+                                 compute_point_heuristic=True)
       packed = renderer2d.project_gaussians2d(g2).contiguous()
       mapping2 = tgr.map_to_tiles(
           packed, torch.clamp(g2.z_depth.reshape(-1), 0.0, 1.0), SIZE, config2)
@@ -247,13 +249,23 @@ def main() -> int:
                                                           SIZE, config2),
           "backward_2d_12_rows": lambda: backward.rasterize_backward(*bw2),
       }
-      if "refused" not in result:
-        calls["forward_3d_34"] = lambda: forward.rasterize_forward(
-            points, feats34, mapping, SIZE, config)
-        calls["backward_3d_34"] = lambda: backward.rasterize_backward(*bw34)
+      for f, (feats, bw_f) in wide.items():
+        calls[f"forward_3d_{f}"] = (
+            lambda feats=feats: forward.rasterize_forward(points, feats, mapping,
+                                                          SIZE, config))
+        calls[f"backward_3d_{f}"] = (
+            lambda bw_f=bw_f: backward.rasterize_backward(*bw_f))
       result["slots"] = {"3d": int(mapping.total_overlaps),
                          "2d": int(mapping2.total_overlaps)}
 
+    # a checkout whose kernels refuse a call (a tile size or a width) lists
+    # it under "refused"
+    for name, fn in list(calls.items()):
+      try:
+        fn()
+      except (ValueError, RuntimeError) as e:
+        result.setdefault("refused", {})[name] = str(e)[:120]
+        del calls[name]
     for name, fn in calls.items():
       ms[name] = cuda_ms(fn)
 
@@ -273,9 +285,11 @@ def main() -> int:
     if args.work and not args.phase2:
       from taichi_gaussian_rasterizer_tpu_torch.ops.raster import bounds
       tiles_n = mapping.tile_ranges.shape[0]
-      w3 = bounds.raster_work(points, mapping, config, SIZE, layouts=(1, 4))
-      w3a = bounds.raster_work(points, mapping, config_aa, SIZE, layouts=(1, 4))
-      w2 = bounds.raster_work(packed, mapping2, config2, SIZE, layouts=(1, 4))
+      # warp counts only where the tile is whole warps of 4 pixels a thread
+      layouts = (1, 4) if (args.tile_size ** 2) % 128 == 0 else ()
+      w3 = bounds.raster_work(points, mapping, config, SIZE, layouts=layouts)
+      w3a = bounds.raster_work(points, mapping, config_aa, SIZE, layouts=layouts)
+      w2 = bounds.raster_work(packed, mapping2, config2, SIZE, layouts=layouts)
       k3, k2 = int(mapping.total_overlaps), int(mapping2.total_overlaps)
       result["work"] = {"3d": w3, "3d_antialias": w3a, "2d": w2}
       result["bounds"] = {
@@ -293,13 +307,15 @@ def main() -> int:
           "backward_2d_12_rows": bounds.backward_bound(
               w2, N, 3, k2, tiles_n, SIZE, False, True, True),
       }
-      if "refused" not in result:
-        result["bounds"].update(
-            forward_3d_34=bounds.forward_bound(w3, N, 34, k3, tiles_n, SIZE, False),
-            backward_3d_34=bounds.backward_bound(w3, N, 34, k3, tiles_n, SIZE,
-                                                 False, False, False))
+      for f in WIDE_FEATURES:
+        result["bounds"].update({
+            f"forward_3d_{f}": bounds.forward_bound(w3, N, f, k3, tiles_n, SIZE,
+                                                    False),
+            f"backward_3d_{f}": bounds.backward_bound(w3, N, f, k3, tiles_n,
+                                                      SIZE, False, False, False)})
       for name, b in result["bounds"].items():
-        b["share"] = b["ms"] / ms[name]
+        if name in ms:
+          b["share"] = b["ms"] / ms[name]
 
     if args.ablate:
       csrc, build_dir = cuda_build.CSRC_DIR, cuda_build.BUILD_DIR
