@@ -31,6 +31,7 @@ from ..ops.mapper import map_to_tiles
 from ..ops.projection import CameraParams, project_to_image
 from ..ops.raster import rasterize_with_tiles
 from ..ops.sh import evaluate_sh_at
+from ..utils import tracing
 
 
 @dataclass(frozen=True)
@@ -216,26 +217,28 @@ def render_gaussians(gaussians: Gaussians3D,
   With use_sh=True the features are (N, 3, (d+1)^2) SH coefficients,
   shaded at every point with detached positions; otherwise raw (N, C)
   features. visit_chunks / visit_capacity render with saturation-front
-  truncation (`render_projected`).
+  truncation (`render_projected`). Under a torch.profiler profile the call
+  is the frame `tgr.render` of `utils.tracing`.
   """
-  gaussians2d, depths, in_view = project_to_image(
-      gaussians, camera_params, config)
+  with tracing.span("render", watch=gaussians):
+    gaussians2d, depths, in_view = project_to_image(
+        gaussians, camera_params, config)
 
-  if use_sh:
-    features = evaluate_sh_at(gaussians.feature, gaussians.position.detach(),
-                              camera_params.camera_position)
-  else:
-    features = gaussians.feature
-    if features.ndim != 2:
-      raise ValueError(
-          f"Features must be (N, C) if use_sh=False, got {tuple(features.shape)}")
+    if use_sh:
+      features = evaluate_sh_at(gaussians.feature, gaussians.position.detach(),
+                                camera_params.camera_position)
+    else:
+      features = gaussians.feature
+      if features.ndim != 2:
+        raise ValueError(
+            f"Features must be (N, C) if use_sh=False, got {tuple(features.shape)}")
 
-  return render_projected(
-      in_view, gaussians2d, features, depths, camera_params, config,
-      render_depth=render_depth, use_depth16=use_depth16,
-      render_median_depth=render_median_depth,
-      heuristic_sink=heuristic_sink, visibility_sink=visibility_sink,
-      visit_chunks=visit_chunks, visit_capacity=visit_capacity)
+    return render_projected(
+        in_view, gaussians2d, features, depths, camera_params, config,
+        render_depth=render_depth, use_depth16=use_depth16,
+        render_median_depth=render_median_depth,
+        heuristic_sink=heuristic_sink, visibility_sink=visibility_sink,
+        visit_chunks=visit_chunks, visit_capacity=visit_capacity)
 
 
 def render_with_heuristics(loss_fn: Callable[[Rendering], torch.Tensor],

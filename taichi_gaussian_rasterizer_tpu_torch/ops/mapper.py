@@ -37,6 +37,7 @@ from typing import Tuple
 import torch
 
 from ..config import RasterConfig
+from ..utils import tracing
 from . import lib
 
 
@@ -183,7 +184,19 @@ def map_to_tiles(points: torch.Tensor, depth: torch.Tensor,
       deterministic)
     use_depth16: sort on 16-bit quantized depths in [0, 1] (see the module
       docstring); raises ValueError when the tile grid reaches 0xFFFF tiles
+
+  Under a torch.profiler profile the call is the span `tgr.map` of
+  `utils.tracing`, counting the candidate keys it sorts (`candidates`)
+  and the overlaps it keeps (`overlaps`), with its host sync `tgr.map.sync`.
   """
+  with tracing.span("map") as sp:
+    mapping = _map_to_tiles(points, depth, image_size, config, use_depth16)
+    sp.count(candidates=mapping.overlap_to_point.shape[0],
+             overlaps=mapping.total_overlaps)
+    return mapping
+
+
+def _map_to_tiles(points, depth, image_size, config, use_depth16):
   n = points.shape[0]
   if depth.ndim == 2:
     depth = depth[:, 0]
@@ -209,7 +222,8 @@ def map_to_tiles(points: torch.Tensor, depth: torch.Tensor,
     by_depth = torch.sort(depth, stable=True).indices
     counts = counts[by_depth]
   offsets = torch.cumsum(counts, 0) - counts
-  n_cand = int(counts.sum())                     # the one host sync
+  with tracing.span("map.sync"):
+    n_cand = int(counts.sum())                   # the one host sync
   gid = torch.repeat_interleave(
       torch.arange(n, device=device), counts, output_size=n_cand)
   j = torch.arange(n_cand, device=device) - offsets[gid]

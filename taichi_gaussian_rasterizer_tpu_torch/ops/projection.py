@@ -21,6 +21,7 @@ import torch
 
 from ..config import RasterConfig
 from ..data_types import Gaussians3D
+from ..utils import tracing
 from . import lib
 
 
@@ -197,12 +198,13 @@ def project_to_image(
 
   Returns (points (N, 7), depth (N, 1), in_view (N,) bool mask).
   """
-  return project_points(
-      *gaussians.shape_tensors(),
-      camera_params.T_camera_world,
-      camera_params.projection,
-      camera_params.image_size,
-      camera_params.depth_range,
-      blur_cov=config.blur_cov,
-      clamp_margin=config.clamp_margin,
-      alpha_threshold=config.alpha_threshold)
+  with tracing.span("project"):
+    return project_points(
+        *gaussians.shape_tensors(),
+        camera_params.T_camera_world,
+        camera_params.projection,
+        camera_params.image_size,
+        camera_params.depth_range,
+        blur_cov=config.blur_cov,
+        clamp_margin=config.clamp_margin,
+        alpha_threshold=config.alpha_threshold)

@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ...config import RasterConfig
+from ...utils import tracing
 from ..mapper import TileMapping, cdiv, map_to_tiles, point_offsets
 from .backward import rasterize_backward
 from .forward import rasterize_forward
@@ -71,8 +72,9 @@ def reduce_slots_by_point(slots: torch.Tensor,
   A stable sort of overlap_to_point groups each point's slots in slot
   order, with the sentinel slots last; the rows are gathered into that
   order and summed per point over the mapper's point_offsets segments."""
-  keys, order = torch.sort(mapping.overlap_to_point, stable=True)
-  grouped = slots.index_select(1, order)
+  with tracing.span("reduce.sort"):
+    keys, order = torch.sort(mapping.overlap_to_point, stable=True)
+    grouped = slots.index_select(1, order)
   return segment_sums_by_sorted_key(keys, grouped, mapping.point_offsets,
                                     mapping.point_sentinel).T
 
@@ -120,9 +122,11 @@ class _Rasterize(torch.autograd.Function):
   @staticmethod
   def forward(ctx, points, features, heuristic_sink, visibility_sink,
               mapping, image_size, config, compute_visibility, tile_front):
-    image, weight, *extra = rasterize_forward(
-        points, features, mapping, image_size, config, compute_visibility,
-        tile_front)
+    ctx.trace_parent = tracing.current()
+    with tracing.span("raster.fwd"):
+      image, weight, *extra = rasterize_forward(
+          points, features, mapping, image_size, config, compute_visibility,
+          tile_front)
     ctx.save_for_backward(points, features, image, weight)
     ctx.mapping, ctx.config = mapping, config
     ctx.heuristic = config.compute_point_heuristic and heuristic_sink is not None
@@ -133,24 +137,28 @@ class _Rasterize(torch.autograd.Function):
 
   @staticmethod
   def backward(ctx, grad_image, grad_weight, *unused):
-    points, features, image, weight = ctx.saved_tensors
-    config, mapping = ctx.config, ctx.mapping
-    f = features.shape[1]
-    slots = rasterize_backward(
-        points, features, mapping, config, image, weight,
-        grad_image.contiguous(), grad_weight.contiguous(),
-        compute_point_heuristic=ctx.heuristic, vis_row=ctx.vis_row)
-    per_point = reduce_slots_by_point(slots, mapping)         # (N, R)
-    grad_points, prune_scale, col = _chain_to_packed(points, per_point,
-                                                     config.antialias)
-    heuristic = vis = None
-    if ctx.heuristic:
-      heuristic = torch.stack(
-          [per_point[:, col] * prune_scale, per_point[:, col + 1]], dim=1)
-      col += 2
-    if ctx.vis_row:
-      vis = per_point[:, col]
-      col += 1
+    with tracing.span("raster.bwd", parent=ctx.trace_parent):
+      points, features, image, weight = ctx.saved_tensors
+      config, mapping = ctx.config, ctx.mapping
+      f = features.shape[1]
+      slots = rasterize_backward(
+          points, features, mapping, config, image, weight,
+          grad_image.contiguous(), grad_weight.contiguous(),
+          compute_point_heuristic=ctx.heuristic, vis_row=ctx.vis_row)
+      per_point = reduce_slots_by_point(slots, mapping)         # (N, R)
+      grad_points, prune_scale, col = _chain_to_packed(points, per_point,
+                                                       config.antialias)
+      heuristic = vis = None
+      if ctx.heuristic:
+        heuristic = torch.stack(
+            [per_point[:, col] * prune_scale, per_point[:, col + 1]], dim=1)
+        col += 2
+      if ctx.vis_row:
+        vis = per_point[:, col]
+        col += 1
+    # the frame's projection and SH backward follow, up to the gradients of
+    # its Gaussians3D tensors
+    tracing.tail("project.bwd", ctx.trace_parent)
     return (grad_points, per_point[:, col:col + f], heuristic, vis,
             None, None, None, None, None)
 

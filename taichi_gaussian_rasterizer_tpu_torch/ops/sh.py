@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import tracing
 from . import lib
 
 
@@ -70,11 +71,12 @@ def evaluate_sh_at(
   """View-dependent SH colour clamped to [0, 1]: (N, C), or (M, C) with
   `indexes`."""
   degree = check_sh_degree(sh_params)
-  if indexes is not None:
-    sh_params = sh_params[indexes]
-    positions = positions[indexes]
+  with tracing.span("sh"):
+    if indexes is not None:
+      sh_params = sh_params[indexes]
+      positions = positions[indexes]
 
-  view_dir = lib.safe_normalize(positions - camera_pos)
-  basis = rsh_cart(view_dir, degree)                          # (N, K)
-  color = torch.einsum("nck,nk->nc", sh_params, basis)        # (N, C)
-  return torch.clamp(color + 0.5, 0.0, 1.0)
+    view_dir = lib.safe_normalize(positions - camera_pos)
+    basis = rsh_cart(view_dir, degree)                        # (N, K)
+    color = torch.einsum("nck,nk->nc", sh_params, basis)      # (N, C)
+    return torch.clamp(color + 0.5, 0.0, 1.0)

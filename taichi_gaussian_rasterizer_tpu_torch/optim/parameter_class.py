@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import kernels
 from .kernels import MomentState
 
@@ -223,8 +224,13 @@ class ParameterClass:
     weight: (N,) explicit fractional weights (fractional optimizers);
       defaults to (visibility > 0).
     basis: (N, D, D) per-point basis for local_vector groups.
-    Returns self.
+    Returns self. Under a torch.profiler profile the step is the span
+    `tgr.optim.step` of `utils.tracing`.
     """
+    with tracing.span("optim.step"):
+      return self._step(grads, visibility, weight, basis)
+
+  def _step(self, grads, visibility, weight, basis) -> "ParameterClass":
     spec = self.optimizer
     if spec.visibility_aware:
       if visibility is None:

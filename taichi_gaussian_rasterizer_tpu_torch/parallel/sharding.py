@@ -76,6 +76,7 @@ from ..ops.mapper import cdiv, map_to_tiles
 from ..ops.projection import CameraParams, project_points
 from ..ops.raster import rasterize
 from ..optim import ParameterClass
+from ..utils import tracing
 
 GAUSSIAN_KEYS = ("position", "log_scaling", "rotation", "alpha_logit", "feature")
 
@@ -183,15 +184,19 @@ def shard_leading(tree, mesh: Mesh):
 def _all_reduce_flat(tensors: Sequence[torch.Tensor],
                      mesh: Mesh) -> List[torch.Tensor]:
   """Each tensor summed over the ranks, with one all_reduce: flattened into
-  one buffer of their promoted dtype, then split and cast back."""
-  dtype = functools.reduce(torch.promote_types, [t.dtype for t in tensors])
-  flat = torch.cat([t.detach().reshape(-1).to(dtype) for t in tensors])
-  dist.all_reduce(flat, group=mesh.group)
-  out, start = [], 0
-  for t in tensors:
-    out.append(flat[start:start + t.numel()].view(t.shape).to(t.dtype))
-    start += t.numel()
-  return out
+  one buffer of their promoted dtype, then split and cast back. Under a
+  torch.profiler profile the call is the span `tgr.dp.pack` of
+  `utils.tracing`, and the all_reduce in it `tgr.dp.allreduce`."""
+  with tracing.span("dp.pack"):
+    dtype = functools.reduce(torch.promote_types, [t.dtype for t in tensors])
+    flat = torch.cat([t.detach().reshape(-1).to(dtype) for t in tensors])
+    with tracing.span("dp.allreduce"):
+      dist.all_reduce(flat, group=mesh.group)
+    out, start = [], 0
+    for t in tensors:
+      out.append(flat[start:start + t.numel()].view(t.shape).to(t.dtype))
+      start += t.numel()
+    return out
 
 
 class _Replicated(torch.autograd.Function):

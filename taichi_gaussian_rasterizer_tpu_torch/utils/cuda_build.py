@@ -16,10 +16,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Sequence
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -86,14 +85,12 @@ class CudaKernel:
     self.symbol = symbol
     self.argtypes = list(argtypes)
     self.launch_count = 0
-    self.build_seconds: Optional[float] = None
     self.build_log = ""
     self._fn = None
     self._error_string = None
 
   def load(self):
     if self._fn is None:
-      t0 = time.perf_counter()
       path, self.build_log = build(self.source)
       lib = ctypes.CDLL(str(path))
       fn = getattr(lib, self.symbol)
@@ -103,7 +100,6 @@ class CudaKernel:
       err.argtypes = [ctypes.c_int]
       err.restype = ctypes.c_char_p
       self._fn, self._error_string = fn, err
-      self.build_seconds = time.perf_counter() - t0
     return self._fn
 
   def launch(self, *args) -> None:

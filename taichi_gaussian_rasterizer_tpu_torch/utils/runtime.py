@@ -4,8 +4,8 @@
 `debug_mode` is the reference's debug-arch role: autograd anomaly
 detection, and every CUDA kernel wrapper synchronises after its launch
 so that a fault inside a kernel raises at that launch. It never swaps
-the plain version in for a kernel. `check_finite` and `profiler_trace`
-are the debugging and tracing helpers.
+the plain version in for a kernel. `check_finite` is the debugging
+helper; the port's spans are `utils.tracing`.
 
 Left out: `init` and `host_fingerprint`, which configure JAX's platform
 and its XLA compile cache; PyTorch has neither to configure.
@@ -13,7 +13,6 @@ and its XLA compile cache; PyTorch has neither to configure.
 
 import contextlib
 import dataclasses
-import os
 
 import torch
 
@@ -33,20 +32,6 @@ def debug_mode():
   finally:
     torch.autograd.set_detect_anomaly(prev_anomaly)
     cuda_build.SYNC_AFTER_LAUNCH = prev_sync
-
-
-@contextlib.contextmanager
-def profiler_trace(log_dir: str):
-  """`torch.profiler` over the block (CPU, and the card's kernels where
-  there is one); writes a chrome trace to log_dir/trace.json on exit.
-  Yields the profiler."""
-  activities = [torch.profiler.ProfilerActivity.CPU]
-  if torch.cuda.is_available():
-    activities.append(torch.profiler.ProfilerActivity.CUDA)
-  os.makedirs(log_dir, exist_ok=True)
-  with torch.profiler.profile(activities=activities) as prof:
-    yield prof
-  prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def _leaves(tree, path="tree"):

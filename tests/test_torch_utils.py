@@ -1,7 +1,7 @@
 """The port's utilities against the JAX package's: `ops.indexing`,
 `ops.lib`, `ops.mapper.pad_to_tile`, `utils.random_data.
-trained_like_gaussians`, `utils.checkpoint`, `utils.runtime` and
-`utils.benchmark`; and a check that no module of the port imports JAX.
+trained_like_gaussians`, `utils.checkpoint` and `utils.runtime`; and a
+check that no module of the port imports JAX.
 
 Tolerances: the lib functions float64, atol 1e-12 (the same formulas);
 indexing, sorts and checkpoints exact.
@@ -28,7 +28,7 @@ from taichi_gaussian_rasterizer_tpu_torch.ops import (
 from taichi_gaussian_rasterizer_tpu_torch.ops.raster import probe_visit_chunks
 from taichi_gaussian_rasterizer_tpu_torch.optim import FractionalAdam, ParameterClass
 from taichi_gaussian_rasterizer_tpu_torch.utils import (
-    benchmark, checkpoint, cuda_build, random_data, runtime)
+    checkpoint, cuda_build, random_data, runtime)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -280,7 +280,7 @@ def test_checkpoint_refuses_unknown_leaves(tmp_path):
     checkpoint.save_checkpoint(str(tmp_path / "x"), {"f": object()})
 
 
-# ---- runtime and benchmark -------------------------------------------------
+# ---- runtime ---------------------------------------------------------------
 
 
 def test_check_finite_names_the_bad_leaves():
@@ -300,16 +300,6 @@ def test_debug_mode_sets_and_restores():
     with runtime.debug_mode():
       raise KeyError("x")
   assert not torch.is_anomaly_enabled() and not cuda_build.SYNC_AFTER_LAUNCH
-
-
-def test_profiler_trace_and_benchmarked(tmp_path, capsys):
-  with runtime.profiler_trace(str(tmp_path)):
-    torch.ones(64).sum()
-  assert (tmp_path / "trace.json").stat().st_size > 0
-  result, ms = benchmark.benchmarked("sum", torch.sum, torch.ones(16), iters=3,
-                                     warmup=1)
-  assert float(result) == 16.0 and ms > 0
-  assert "host clock" in capsys.readouterr().out
 
 
 # ---- the port imports no JAX -------------------------------------------------

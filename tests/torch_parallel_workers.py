@@ -6,9 +6,9 @@ scenes are numpy arrays made from seeds by the functions below, so the
 test rebuilds the same inputs for the single-process port and the JAX
 package.
 
-`World(world_size, out_dir)` spawns the ranks of one gloo world with
-its own `file://` rendezvous under out_dir. Each rank runs every case of
-CASES on the whole world (and the runs on worlds of 2 and 1 on
+`World(world_size, out_dir, cases=None)` spawns the ranks of one gloo
+world with its own `file://` rendezvous under out_dir. Each rank runs
+every case of CASES (or the named ones) on the whole world (and the runs on worlds of 2 and 1 on
 `make_mesh(2)` and `make_mesh(1)`) and writes its results, numpy arrays named `<case>.<name>`, to
 out_dir/rank<r>.npz. `World.results()` waits for the ranks, with a time
 limit, and loads those files.
@@ -227,14 +227,35 @@ def case_refusals(meshes):
   return out
 
 
+def case_spans(meshes):
+  """One dp_train_step on a world of 2 under torch.profiler: the names of
+  the port's span records (utils.tracing) on this rank, and for each the
+  index of its parent record (-1 for none)."""
+  from taichi_gaussian_rasterizer_tpu_torch.utils import tracing
+  mesh = meshes[2]
+  if mesh is None:
+    return {}
+  g, proj, t_cam, targets = dp_scene(False)
+  params = ParameterClass.create({k: t(v) for k, v in g.items()},
+                                 param_groups(), FractionalAdam)
+  step = dp_train_step(mesh, tp_config(), DP_SIZE, depth_range=DP_DEPTH_RANGE)
+  tracing.clear()
+  with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+    step(params, *shard_leading((t(proj[:2]), t(t_cam[:2]), t(targets[:2])), mesh))
+  recs = tracing.records()
+  index = {r["id"]: i for i, r in enumerate(recs)}
+  return dict(names=np.array([r["name"] for r in recs]),
+              parents=np.array([index.get(r["parent"], -1) for r in recs]))
+
+
 CASES = {"refusals": case_refusals, "dp": case_dp, "pp": case_pp, "tp_rasterize": case_tp_rasterize,
-         "tp_train": case_tp_train, "skew": case_skew}
+         "tp_train": case_tp_train, "skew": case_skew, "spans": case_spans}
 
 
 # ---- the world -----------------------------------------------------------------
 
 
-def rank_main(rank: int, world_size: int, out_dir: str):
+def rank_main(rank: int, world_size: int, out_dir: str, cases=None):
   torch.set_num_threads(1)
   dist.init_process_group(
       "gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
@@ -242,7 +263,8 @@ def rank_main(rank: int, world_size: int, out_dir: str):
   try:
     meshes = {n: make_mesh(n, device="cpu") for n in (world_size, 2, 1)}
     results = {}
-    for name, case in CASES.items():
+    for name in cases or CASES:
+      case = CASES[name]
       results.update({f"{name}.{k}": v for k, v in case(meshes).items()})
     np.savez(Path(out_dir) / f"rank{rank}.npz", **results)
   except BaseException:
@@ -255,11 +277,11 @@ def rank_main(rank: int, world_size: int, out_dir: str):
 class World:
   """The processes of one spawned gloo world."""
 
-  def __init__(self, world_size: int, out_dir: Path):
+  def __init__(self, world_size: int, out_dir: Path, cases=None):
     self.out_dir = Path(out_dir)
     ctx = multiprocessing.get_context("spawn")
     self.procs = [ctx.Process(target=rank_main,
-                              args=(r, world_size, str(self.out_dir)))
+                              args=(r, world_size, str(self.out_dir), cases))
                   for r in range(world_size)]
     for p in self.procs:
       p.start()
