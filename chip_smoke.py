@@ -15,10 +15,10 @@ a feature-field frame of 34 blended channels, past the register
 kernels' 16, and tile sizes of 12 and 40 pixels. Phases, each printing
 its lines:
 
-1. build -- nvcc builds csrc/raster_forward.cu, raster_backward.cu and
-   segment_sum.cu for sm_90a, one process each, all at once; prints the
-   build times, ptxas's register and spill summary, the card's name and
-   power limit.
+1. build -- nvcc builds csrc/raster_forward.cu, raster_backward.cu,
+   segment_sum.cu and sh.cu for sm_90a, one process each, all at once;
+   prints the build times, ptxas's register and spill summary, the
+   card's name and power limit.
 2. forward kernel against plain -- about 20k gaussians at 640x480 in
    float32, in all four modes (blending or quantile, conic or antialiased
    pdf); asserts the tolerance below and prints max and p99.99 |diff| and
@@ -48,8 +48,14 @@ its lines:
    ms/frame, the frame split into projection, mapper and raster, and the
    kernel's and the plain version's time over the whole frame.
 4. the serving configuration -- the same size with SH degree-3 features,
-   `use_sh`, `render_depth` and `render_median_depth` (two kernel launches
-   a frame); checks finite output and prints ms/frame.
+   `use_sh`, `render_depth` and `render_median_depth` (two raster launches
+   and one SH launch a frame); checks finite output and prints ms/frame.
+   The SH kernels (csrc/sh.cu) against the plain version on the scene:
+   colours within 1e-5 and d_sh (seeded cotangent) within 1e-6 of
+   autograd's through the plain version, rows within 1e-5 of the clamp's
+   ends left out; prints each kernel's ms beside its bound in bytes, the
+   plain version's forward and backward, and the einsum and its backward
+   (the library calls the plain version makes).
 4b. serving with visibility and depth16 -- phase 3's scene, three renders
    with `RasterConfig(compute_visibility=True)`: one forward and one
    segment-sum launch a render, visibility >= 0 adding up to the weight
@@ -211,6 +217,9 @@ TOL_P9999 = 1e-4
 TOL_MAX_BLENDING = 2e-2
 TOL_ROWS_MAX = 1e-2
 TOL_SEGMENT = 1e-5
+TOL_SH_COLOR = 1e-5   # tests/test_torch_sh.py's float32 tolerances
+TOL_SH_D_SH = 1e-6
+HBM_BYTES_PER_S = 3.35e12
 
 
 def card_line() -> str:
@@ -295,6 +304,84 @@ def bound_line(b, ms):
   """A kernel's bound on a frame beside its measured time."""
   return (f"bound {b['ms']:.4f} ms ({b['bound_by']}: {b['ops'] / 1e9:.3f} "
           f"GFLOP, {b['bytes'] / 1e6:.1f} MB), share {b['ms'] / ms:.3f}")
+
+
+def sh_bytes(n: int, c: int, k: int, itemsize: int = 4) -> dict:
+  """Bytes the SH kernels must move at least: the forward reads the
+  coefficients and positions and writes the colours (and, for a gradient,
+  the clamp's byte gate); the backward reads the cotangent, the gate and
+  the positions and writes d_sh."""
+  forward = (n * c * k + 3 * n + n * c) * itemsize
+  return dict(forward=forward, forward_gate=forward + n * c,
+              backward=(n * c + 3 * n + n * c * k) * itemsize + n * c)
+
+
+def sh_kernels(sh_ops, feats, pos, cam, reps: int = 20) -> dict:
+  """The SH kernels against the plain version on (N, C, K) coefficients,
+  a seeded cotangent, and the times of the kernels, the plain version and
+  its einsum (CUDA events). Returns the numbers printed."""
+  n, c, k = feats.shape
+  gen = torch.Generator(device=feats.device).manual_seed(4)
+  grad = torch.rand((n, c), generator=gen, device=feats.device) * 2 - 1
+  launches = (sh_ops.SH_FORWARD.launch_count, sh_ops.SH_BACKWARD.launch_count)
+  with torch.enable_grad():
+    leaf = feats.detach().clone().requires_grad_()
+    color = sh_ops.evaluate_sh_at(leaf, pos, cam)
+    (color * grad).sum().backward()
+    plain_leaf = feats.detach().clone().requires_grad_()
+    want = sh_ops.evaluate_sh_plain(plain_leaf, pos, cam)
+    (want * grad).sum().backward()
+  torch.cuda.synchronize()
+  assert (sh_ops.SH_FORWARD.launch_count, sh_ops.SH_BACKWARD.launch_count) == (
+      launches[0] + 1, launches[1] + 1)
+  d = sh_ops.lib.safe_normalize(pos.double() - cam.double())
+  x = torch.einsum("nck,nk->nc", feats.double(),
+                   sh_ops.rsh_cart(d, sh_ops.check_sh_degree(feats))) + 0.5
+  sure = (x.abs() > TOL_SH_COLOR) & ((x - 1).abs() > TOL_SH_COLOR)
+  color_err = float((color - want).detach().abs().max())
+  d_sh_err = float((leaf.grad - plain_leaf.grad)[sure].abs().max())
+  out = dict(color_err=color_err, d_sh_err=d_sh_err,
+             near_clamp_rows=int((~sure).sum()))
+  ok = color_err <= TOL_SH_COLOR and d_sh_err <= TOL_SH_D_SH
+  print(f"  SH kernels against plain, {n} x {c} x {k}: colour max |diff| "
+        f"{color_err:.3e}, d_sh max |diff| {d_sh_err:.3e} over all but "
+        f"{out['near_clamp_rows']} rows within {TOL_SH_COLOR} of the clamp's "
+        f"ends ({'within' if ok else 'OUTSIDE'} tolerance)")
+  if not ok:
+    raise AssertionError("SH kernels and plain version disagree")
+  del leaf, plain_leaf, color, want, x, d, sure
+
+  feats, pos = feats.detach(), pos.detach()
+  _, gate = sh_ops._launch_forward(feats, pos, cam, True)
+  basis = sh_ops.rsh_cart(sh_ops.lib.safe_normalize(pos - cam),
+                          sh_ops.check_sh_degree(feats))
+  with torch.enable_grad():
+    leaf = feats.clone().requires_grad_()
+    plain_out = sh_ops.evaluate_sh_plain(leaf, pos, cam)
+    einsum_out = torch.einsum("nck,nk->nc", leaf, basis)
+  ms = dict(
+      forward=cuda_ms(lambda: sh_ops._launch_forward(feats, pos, cam, False), reps),
+      forward_gate=cuda_ms(lambda: sh_ops._launch_forward(feats, pos, cam, True),
+                           reps),
+      backward=cuda_ms(lambda: sh_ops._launch_backward(grad, gate, pos, cam, None,
+                                                       k, True), reps),
+      plain_forward=cuda_ms(lambda: sh_ops.evaluate_sh_plain(feats, pos, cam), 5),
+      plain_backward=cuda_ms(lambda: torch.autograd.grad(
+          plain_out, leaf, grad, retain_graph=True), 5),
+      einsum=cuda_ms(lambda: torch.einsum("nck,nk->nc", feats, basis), 5),
+      einsum_backward=cuda_ms(lambda: torch.autograd.grad(
+          einsum_out, leaf, grad, retain_graph=True), 5))
+  nbytes = sh_bytes(n, c, k, feats.element_size())
+  for name in ("forward", "forward_gate", "backward"):
+    bound = nbytes[name] / HBM_BYTES_PER_S * 1e3
+    print(f"  SH {name.replace('_', ' + ')} kernel {ms[name]:.4f} ms; bound "
+          f"{bound:.4f} ms (bytes: {nbytes[name] / 1e6:.1f} MB), share "
+          f"{bound / ms[name]:.3f}")
+  print(f"  SH plain forward {ms['plain_forward']:.4f} ms, backward "
+        f"{ms['plain_backward']:.4f} ms; its einsum {ms['einsum']:.4f} ms, "
+        f"the einsum's backward {ms['einsum_backward']:.4f} ms")
+  out.update(ms=ms, bytes=nbytes)
+  return out
 
 
 def ptxas_summary(log: str) -> str:
@@ -1199,6 +1286,7 @@ def main() -> int:
   import taichi_gaussian_rasterizer_tpu_torch as tgr
   from taichi_gaussian_rasterizer_tpu_torch.examples import (
       fit_image_gaussians as fit2d)
+  from taichi_gaussian_rasterizer_tpu_torch.ops import sh as sh_ops
   from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
       backward, bounds, forward, reduce, reduce_slots_by_point, tiles)
   from taichi_gaussian_rasterizer_tpu_torch.utils.cuda_build import load_all
@@ -1231,11 +1319,13 @@ def main() -> int:
   print(f"[1 build] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
   t0 = time.perf_counter()
-  load_all(list(kernels.values()))
-  print(f"[1 build] nvcc built the three sources for sm_90a in parallel in "
+  load_all(list(kernels.values()) + [sh_ops.SH_FORWARD])
+  sh_ops.SH_BACKWARD.load()   # the same library
+  print(f"[1 build] nvcc built the four sources for sm_90a in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
   for name, k in kernels.items():
     print(f"  {KERNELS[name][0]}: ptxas: {ptxas_summary(k.build_log)}")
+  print(f"  {CSRC}sh.cu: ptxas: {ptxas_summary(sh_ops.SH_FORWARD.build_log)}")
 
   with torch.no_grad():
     # ---- phase 2: kernel against plain, all four modes -----------------
@@ -1474,6 +1564,7 @@ def main() -> int:
     print(f"[4 serve] {args.n} gaussians @{width}x{height}, SH degree 3, "
           f"render_depth, render_median_depth")
     reset_counts()
+    sh_launches = sh_ops.SH_FORWARD.launch_count
     sh_ms = []
     for _ in range(3):
       torch.cuda.synchronize()
@@ -1483,6 +1574,7 @@ def main() -> int:
       torch.cuda.synchronize()
       sh_ms.append((time.perf_counter() - t0) * 1e3)
     assert counts()["raster_forward"] == 6, counts()
+    assert sh_ops.SH_FORWARD.launch_count == sh_launches + 3
     for field in ("image", "image_weight", "depth", "depth_var", "median_depth"):
       value = getattr(r, field)
       assert value.shape[:2] == (height, width), (field, value.shape)
@@ -1494,6 +1586,8 @@ def main() -> int:
           f"of pixels")
     print(f"  ms/frame median {statistics.median(sh_ms):.3f} "
           f"(3 renders: {', '.join(f'{t:.3f}' for t in sh_ms)})")
+    sh_kernels(sh_ops, scene_sh.feature, scene_sh.position,
+               camera.camera_position)
 
     # ---- phase 4b: serving with visibility and depth16 -----------------
     vis_config = config.replace(compute_visibility=True)

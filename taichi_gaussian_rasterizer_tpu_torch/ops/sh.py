@@ -1,17 +1,32 @@
 """Spherical-harmonics shading (port of `taichi_gaussian_rasterizer_tpu.ops.sh`).
 
-Real cartesian SH bases of degree 0-3, evaluated for all N points in
-plain torch; autograd gives the backward. `num_sh_coeffs` is left out: no
-caller in the port.
+Real cartesian SH bases of degree 0-3. `evaluate_sh_at` is the one entry
+point. On CUDA tensors it runs the hand-written kernels `csrc/sh.cu`, one
+each way, inside the autograd Function `_ShadeSH`, or raises: the forward
+builds each point's basis in registers and writes only the clamped colour
+(and, when a gradient will be taken, the clamp's byte gate), and the
+backward recomputes the basis from the positions. On CPU tensors it runs
+`evaluate_sh_plain`, the basis as plain torch and the contraction as an
+einsum, which autograd differentiates. Nothing falls back from the
+kernels to the plain version. `num_sh_coeffs` is left out: no caller in
+the port.
 """
 
+import ctypes
 import math
 from typing import Optional
 
 import torch
 
 from ..utils import tracing
+from ..utils.cuda_build import CudaKernel
 from . import lib
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SH_FORWARD = CudaKernel("sh.cu", "tgr_sh_forward",
+                        [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P])
+SH_BACKWARD = CudaKernel("sh.cu", "tgr_sh_backward",
+                         [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _P])
 
 
 def check_sh_degree(sh_features: torch.Tensor) -> int:
@@ -62,6 +77,115 @@ def rsh_cart(xyz: torch.Tensor, degree: int) -> torch.Tensor:
   return torch.stack(out, dim=-1)
 
 
+def evaluate_sh_plain(sh_params: torch.Tensor, positions: torch.Tensor,
+                      camera_pos: torch.Tensor) -> torch.Tensor:
+  """The plain version: clamp(einsum(sh, basis) + 0.5, 0, 1), (N, C)."""
+  view_dir = lib.safe_normalize(positions - camera_pos)
+  basis = rsh_cart(view_dir, check_sh_degree(sh_params))   # (N, K)
+  color = torch.einsum("nck,nk->nc", sh_params, basis)     # (N, C)
+  return torch.clamp(color + 0.5, 0.0, 1.0)
+
+
+def _kernel_inputs(sh_params: torch.Tensor, positions: torch.Tensor,
+                   camera_pos: torch.Tensor):
+  """The kernels' inputs, checked: one dtype (float32 or float64) and
+  device, contiguous, the coefficients 16-byte aligned."""
+  dtype, device = sh_params.dtype, sh_params.device
+  if dtype not in (torch.float32, torch.float64):
+    raise TypeError(f"the CUDA SH kernels take float32 or float64, got {dtype}")
+  for name, t in (("positions", positions), ("camera_pos", camera_pos)):
+    if t.device != device:
+      raise ValueError(f"{name} is on {t.device}, sh_params on {device}")
+    if t.dtype != dtype:
+      raise TypeError(f"{name} is {t.dtype}, sh_params {dtype}")
+  n, c, k = sh_params.shape
+  if positions.shape != (n, 3) or camera_pos.shape != (3,):
+    raise ValueError(f"positions must be ({n}, 3) and camera_pos (3,), got "
+                     f"{tuple(positions.shape)} and {tuple(camera_pos.shape)}")
+  if check_sh_degree(sh_params) > 3:
+    raise ValueError(f"SH degree must be 0..3, got K = {k}")
+  if n * c * k >= 2 ** 31:
+    raise ValueError(f"the CUDA SH kernels take fewer than 2^31 coefficients, "
+                     f"got {n} x {c} x {k}")
+  sh = sh_params.contiguous()
+  if sh.data_ptr() % 16:
+    sh = sh.clone()
+  return sh, positions.contiguous(), camera_pos.contiguous()
+
+
+def _launch_forward(sh: torch.Tensor, positions: torch.Tensor,
+                    camera_pos: torch.Tensor, gate: bool):
+  """The forward kernel: (colour (N, C), the clamp's gate (N, C) uint8 or
+  None)."""
+  n, c, k = sh.shape
+  color = sh.new_empty((n, c))
+  mask = torch.empty((n, c), dtype=torch.uint8, device=sh.device) if gate else None
+  SH_FORWARD.launch(sh.data_ptr(), positions.data_ptr(), camera_pos.data_ptr(),
+                    n, c, k, int(sh.dtype == torch.float64), color.data_ptr(),
+                    None if mask is None else mask.data_ptr(),
+                    torch.cuda.current_stream(sh.device).cuda_stream)
+  return color, mask
+
+
+def _launch_backward(grad: torch.Tensor, mask: torch.Tensor,
+                     positions: torch.Tensor, camera_pos: torch.Tensor,
+                     sh: Optional[torch.Tensor], k: int, want_sh: bool):
+  """The backward kernel: (d_sh (N, C, K) or None, and with `sh` each
+  (point, channel) row's share of d(position - camera) (N, C, 3), or
+  None)."""
+  n, c = grad.shape
+  d_sh = grad.new_empty((n, c, k)) if want_sh else None
+  d_dir = grad.new_empty((n, c, 3)) if sh is not None else None
+  SH_BACKWARD.launch(grad.data_ptr(), mask.data_ptr(), positions.data_ptr(),
+                     camera_pos.data_ptr(), None if sh is None else sh.data_ptr(),
+                     n, c, k, int(grad.dtype == torch.float64),
+                     None if d_sh is None else d_sh.data_ptr(),
+                     None if d_dir is None else d_dir.data_ptr(),
+                     torch.cuda.current_stream(grad.device).cuda_stream)
+  return d_sh, d_dir
+
+
+class _ShadeSH(torch.autograd.Function):
+  """SH shading as an autograd node: the forward kernel, and the backward
+  kernel with the gradients of the inputs that require them compiled in.
+  Saves the positions, the camera position and the clamp's byte gate,
+  and the coefficients only for the positions' (or camera's) gradient;
+  never the basis."""
+
+  @staticmethod
+  def forward(ctx, sh_params, positions, camera_pos, gate):
+    ctx.trace_parent = tracing.current()
+    sh, positions, camera_pos = _kernel_inputs(sh_params, positions, camera_pos)
+    color, mask = _launch_forward(sh, positions, camera_pos, gate)
+    ctx.k = sh.shape[2]
+    ctx.want_dir = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+    ctx.save_for_backward(positions, camera_pos, mask,
+                          sh if ctx.want_dir else None)
+    return color
+
+  @staticmethod
+  def backward(ctx, grad_color):
+    with tracing.span("sh.bwd", parent=ctx.trace_parent):
+      positions, camera_pos, mask, sh = ctx.saved_tensors
+      d_sh, d_dir = _launch_backward(grad_color.contiguous(), mask, positions,
+                                     camera_pos, sh, ctx.k,
+                                     ctx.needs_input_grad[0])
+      d_pos = d_cam = None
+      if d_dir is not None:
+        d_v = d_dir.sum(1)
+        d_pos = d_v if ctx.needs_input_grad[1] else None
+        d_cam = -d_v.sum(0) if ctx.needs_input_grad[2] else None
+    return d_sh, d_pos, d_cam, None
+
+
+def evaluate_sh_cuda(sh_params: torch.Tensor, positions: torch.Tensor,
+                     camera_pos: torch.Tensor) -> torch.Tensor:
+  """The kernels, differentiable wrt the inputs that require grad."""
+  inputs = (sh_params, positions, camera_pos)
+  gate = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+  return _ShadeSH.apply(*inputs, gate)
+
+
 def evaluate_sh_at(
     sh_params: torch.Tensor,   # (N, C, (d+1)^2) coefficients
     positions: torch.Tensor,   # (N, 3) gaussian positions
@@ -69,14 +193,21 @@ def evaluate_sh_at(
     indexes: Optional[torch.Tensor] = None,  # optional (M,) gather indices
 ) -> torch.Tensor:
   """View-dependent SH colour clamped to [0, 1]: (N, C), or (M, C) with
-  `indexes`."""
-  degree = check_sh_degree(sh_params)
-  with tracing.span("sh"):
+  `indexes` (gathered in torch ahead of the kernels). Under a profile the
+  span `tgr.sh` counts the rows shaded (`points`) and those the CUDA
+  kernel shaded (`kernel_points`)."""
+  check_sh_degree(sh_params)
+  with tracing.span("sh") as span:
     if indexes is not None:
       sh_params = sh_params[indexes]
       positions = positions[indexes]
-
-    view_dir = lib.safe_normalize(positions - camera_pos)
-    basis = rsh_cart(view_dir, degree)                        # (N, K)
-    color = torch.einsum("nck,nk->nc", sh_params, basis)      # (N, C)
-    return torch.clamp(color + 0.5, 0.0, 1.0)
+    points = sh_params.shape[0]
+    if sh_params.is_cuda:
+      color = evaluate_sh_cuda(sh_params, positions, camera_pos)
+      span.count(points=points, kernel_points=points)
+    elif sh_params.device.type == "cpu":
+      color = evaluate_sh_plain(sh_params, positions, camera_pos)
+      span.count(points=points, kernel_points=0)
+    else:
+      raise ValueError(f"no SH shading for device {sh_params.device}")
+    return color

@@ -24,7 +24,10 @@ Spans of the port, and the counts they carry:
 
   tgr.render        render_gaussians (frame root)
   tgr.project       project_to_image
-  tgr.sh            evaluate_sh_at
+  tgr.sh            evaluate_sh_at: points (rows shaded), kernel_points
+                    (rows the CUDA kernel shaded, 0 on the plain path)
+  tgr.sh.bwd        the SH kernel's autograd backward (CUDA tensors only;
+                    parent and frame from the forward's tgr.sh)
   tgr.map           map_to_tiles: candidates (keys sorted), overlaps (kept)
   tgr.map.sync      its one host sync, the candidate total
   tgr.raster.fwd    the blend's autograd forward

@@ -159,6 +159,17 @@ def test_map_counts_candidates_and_overlaps():
   assert isinstance(m["counts"]["overlaps"], int)
 
 
+@pytest.mark.parametrize("gather", [False, True])
+def test_sh_counts_points_and_kernel_points(gather):
+  """tgr.sh counts the rows shaded; on the CPU none by the CUDA kernel."""
+  cam, g = scene()
+  indexes = torch.arange(0, 300, 7) if gather else None
+  _, recs = profiled(lambda: tgr.evaluate_sh_at(
+      g.feature, g.position, cam.camera_position, indexes=indexes))
+  (shade,) = [r for r in recs if r["name"] == "tgr.sh"]
+  assert shade["counts"] == dict(points=43 if gather else 300, kernel_points=0)
+
+
 def test_backward_tail_closes_for_part_of_the_gradients():
   """A gradient taken for the positions alone: the other tensors' hooks
   never fire, and the end of the backward pass closes tgr.project.bwd."""
