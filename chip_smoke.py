@@ -138,7 +138,11 @@ its lines:
    backward rows (a seeded normal cotangent on all 34 channels) on 64
    seeded tiles against the plain versions, the backward bitwise the same
    on a second run, the segment sums of its 40 rows over the whole frame
-   against plain; ms/frame, ms/step, peak device memory, and each
+   against plain; the reduction of 137 seeded slot rows (a Feature 3DGS
+   backward's 6 + 3 + 128) over the frame's slots, which gathers and sums
+   blocks of 48, 48 and 41 rows: three segment-sum launches, bit for bit
+   the one-shot gather and kernel launch over all 137, and within the
+   segment-sum tolerance of the plain segment sum; ms/frame, ms/step, peak device memory, and each
    kernel's, plain version's and (segment sum) `index_add_`'s time beside
    its bound. Then at F = 17, 64 and 128 (seeded raw features, no depth):
    a serving render and a training step through `render_gaussians`,
@@ -1104,6 +1108,20 @@ def feature_field(args, dev, card, kernels, scene, camera):
         f"whole frame, segment-sum kernel vs plain ({slots.shape[0]} rows)",
         reduce.segment_sums_cuda(grouped, mapping.point_offsets, n),
         reduce.segment_sums_plain(keys, grouped, n))
+
+    rows = 6 + 3 + 128
+    wide = torch.randn((rows, slots.shape[1]), generator=gen_g, device=dev)
+    reset_counts()
+    blocks = reduce_slots_by_point(wide, mapping)
+    assert counts()["segment_sum"] == 3, counts()
+    wide_grouped = wide.index_select(1, order)
+    assert torch.equal(blocks, reduce.segment_sums_cuda(
+        wide_grouped, mapping.point_offsets, n).T), "blocks differ from one shot"
+    check_segment_sums(f"whole frame, {rows} rows in blocks of 48, 48 and 41 "
+                       f"(3 segment-sum launches) vs plain, bit for bit the "
+                       f"one-shot kernel", blocks.T,
+                       reduce.segment_sums_plain(keys, wide_grouped, n))
+    del wide, wide_grouped, blocks
 
     k = int(mapping.total_overlaps)
     work = bounds.raster_work(points, mapping, config, size)

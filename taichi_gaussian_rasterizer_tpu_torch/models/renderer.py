@@ -11,6 +11,12 @@ the gradients and a rendering whose per-point heuristics and visibility
 are filled in from the backward pass. With `compute_visibility` in the
 config, a plain render fills `point_visibility` from the forward pass.
 
+`point_features` (N, C), a feature field's per-point vectors (Feature
+3DGS's semantic features), are blended in the same pass as the colour,
+after it, with the same weights; their image is `Rendering.feature_map`
+and their gradient flows back to the tensor passed in. The decoder that
+takes such a map to a teacher's width is `models.feature_decoder`.
+
 `visit_chunks`/`visit_capacity` render with saturation-front truncation
 (`ops.raster.function.probe_visit_chunks`), and `Rendering.raster_overflow`
 then says whether it cropped a tile; the median-depth pass is non-blending
@@ -53,6 +59,7 @@ class Rendering:
   median_depth: Optional[torch.Tensor] = None       # (H, W)
   raster_overflow: Optional[torch.Tensor] = None    # () bool with visit_chunks:
                                                     # truncation cropped a tile
+  feature_map: Optional[torch.Tensor] = None        # (H, W, C) with point_features
 
   @property
   def ndc_depth(self):
@@ -146,16 +153,28 @@ def render_projected(in_view: torch.Tensor, gaussians2d: torch.Tensor,
                      heuristic_sink: Optional[torch.Tensor] = None,
                      visibility_sink: Optional[torch.Tensor] = None,
                      visit_chunks: Optional[torch.Tensor] = None,
-                     visit_capacity: Optional[int] = None) -> Rendering:
+                     visit_capacity: Optional[int] = None,
+                     point_features: Optional[torch.Tensor] = None) -> Rendering:
   """Rasterize already-projected gaussians. visit_chunks / visit_capacity
   as in `rasterize_with_tiles`: probe them on the same points and
-  mapping (`probe_visit_chunks`)."""
+  mapping (`probe_visit_chunks`). point_features (N, C), where given, are
+  blended after `features` in the same pass and come back as
+  `Rendering.feature_map`."""
   near, far = camera_params.near_plane, camera_params.far_plane
   ndc_depths = lib.ndc_depth(torch.clamp(depths, min=near), near, far)
 
+  n_colour = features.shape[1]
+  parts = [features]
+  if point_features is not None:
+    if point_features.ndim != 2 or point_features.shape[0] != features.shape[0]:
+      raise ValueError(f"point_features must be (N, C) with N = {features.shape[0]}, "
+                       f"got {tuple(point_features.shape)}")
+    parts.append(point_features)
   if render_depth:
     d = ndc_depths if use_ndc_depth else depths
-    features = torch.cat([d, d * d, features], dim=1)
+    parts = [d, d * d] + parts
+  if len(parts) > 1:
+    features = torch.cat(parts, dim=1)
 
   mapping = map_to_tiles(gaussians2d, ndc_depths[:, 0],
                          camera_params.image_size, config,
@@ -181,7 +200,16 @@ def render_projected(in_view: torch.Tensor, gaussians2d: torch.Tensor,
 
   img_depth, img_depth_var = None, None
   feature_image = raster.image
-  if render_depth:
+  feature_map = None
+  if point_features is not None:
+    # one split, so that the backward writes one (H, W, F) gradient
+    depth_part, feature_image, feature_map = torch.split(
+        feature_image, [2 if render_depth else 0, n_colour,
+                        point_features.shape[1]], dim=-1)
+    if render_depth:
+      img_depth, img_depth_var = compute_depth_variance(depth_part,
+                                                        raster.image_weight)
+  elif render_depth:
     img_depth, img_depth_var = compute_depth_variance(
         feature_image[..., :2], raster.image_weight)
     feature_image = feature_image[..., 2:]
@@ -198,7 +226,8 @@ def render_projected(in_view: torch.Tensor, gaussians2d: torch.Tensor,
       depth=img_depth,
       depth_var=img_depth_var,
       median_depth=median_depth,
-      raster_overflow=raster.bin_overflow)
+      raster_overflow=raster.bin_overflow,
+      feature_map=feature_map)
 
 
 def render_gaussians(gaussians: Gaussians3D,
@@ -211,14 +240,19 @@ def render_gaussians(gaussians: Gaussians3D,
                      heuristic_sink: Optional[torch.Tensor] = None,
                      visibility_sink: Optional[torch.Tensor] = None,
                      visit_chunks: Optional[torch.Tensor] = None,
-                     visit_capacity: Optional[int] = None) -> Rendering:
+                     visit_capacity: Optional[int] = None,
+                     point_features: Optional[torch.Tensor] = None) -> Rendering:
   """Render 3D gaussians.
 
   With use_sh=True the features are (N, 3, (d+1)^2) SH coefficients,
   shaded at every point with detached positions; otherwise raw (N, C)
-  features. visit_chunks / visit_capacity render with saturation-front
-  truncation (`render_projected`). Under a torch.profiler profile the call
-  is the frame `tgr.render` of `utils.tracing`.
+  features. point_features (N, C'), a feature field's per-point vectors,
+  are blended after the colour in the same raster pass (3 + C' channels
+  with SH) and come back as `Rendering.feature_map` (H, W, C'), the
+  colour as `Rendering.image`; None renders exactly as without them.
+  visit_chunks / visit_capacity render with saturation-front truncation
+  (`render_projected`). Under a torch.profiler profile the call is the
+  frame `tgr.render` of `utils.tracing`.
   """
   with tracing.span("render", watch=gaussians):
     gaussians2d, depths, in_view = project_to_image(
@@ -238,7 +272,8 @@ def render_gaussians(gaussians: Gaussians3D,
         render_depth=render_depth, use_depth16=use_depth16,
         render_median_depth=render_median_depth,
         heuristic_sink=heuristic_sink, visibility_sink=visibility_sink,
-        visit_chunks=visit_chunks, visit_capacity=visit_capacity)
+        visit_chunks=visit_chunks, visit_capacity=visit_capacity,
+        point_features=point_features)
 
 
 def render_with_heuristics(loss_fn: Callable[[Rendering], torch.Tensor],

@@ -65,18 +65,34 @@ class RasterOut(NamedTuple):
                                                # truncation cropped a tile
 
 
+# slot rows gathered and summed at a time: a wide feature field's backward
+# writes 6 + F rows, whose gathered copy is made a block of rows at a time
+# instead of whole
+REDUCE_ROWS = 48
+
+
 def reduce_slots_by_point(slots: torch.Tensor,
                           mapping: TileMapping) -> torch.Tensor:
   """(R, K) per-overlap-slot rows -> (N, R) per-point sums.
 
   A stable sort of overlap_to_point groups each point's slots in slot
-  order, with the sentinel slots last; the rows are gathered into that
-  order and summed per point over the mapper's point_offsets segments."""
-  with tracing.span("reduce.sort"):
+  order, with the sentinel slots last; each block of REDUCE_ROWS rows is
+  gathered into that order and summed per point over the mapper's
+  point_offsets segments into its rows of the result, so that the
+  gathered copy holds one block and not all R rows (each sum is the same,
+  bit for bit). Spans `tgr.reduce.sort`: the sort, with counts `rows` (R)
+  and `chunks` (the blocks), then one a block's gather."""
+  r, n = slots.shape[0], mapping.point_sentinel
+  with tracing.span("reduce.sort") as s:
+    s.count(rows=r, chunks=cdiv(r, REDUCE_ROWS))
     keys, order = torch.sort(mapping.overlap_to_point, stable=True)
-    grouped = slots.index_select(1, order)
-  return segment_sums_by_sorted_key(keys, grouped, mapping.point_offsets,
-                                    mapping.point_sentinel).T
+  out = slots.new_empty(r, n)
+  for r0 in range(0, r, REDUCE_ROWS):
+    with tracing.span("reduce.sort"):
+      grouped = slots[r0:r0 + REDUCE_ROWS].index_select(1, order)
+    segment_sums_by_sorted_key(keys, grouped, mapping.point_offsets, n,
+                               out=out[r0:r0 + REDUCE_ROWS])
+  return out.T
 
 
 def _chain_to_packed(points: torch.Tensor, per_point: torch.Tensor,
@@ -123,7 +139,8 @@ class _Rasterize(torch.autograd.Function):
   def forward(ctx, points, features, heuristic_sink, visibility_sink,
               mapping, image_size, config, compute_visibility, tile_front):
     ctx.trace_parent = tracing.current()
-    with tracing.span("raster.fwd"):
+    with tracing.span("raster.fwd") as s:
+      s.count(channels=features.shape[1])
       image, weight, *extra = rasterize_forward(
           points, features, mapping, image_size, config, compute_visibility,
           tile_front)

@@ -18,6 +18,7 @@ slots instead).
 """
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -41,8 +42,9 @@ def segment_sums_plain(keys: torch.Tensor, values: torch.Tensor,
 
 
 def segment_sums_cuda(values: torch.Tensor, offsets: torch.Tensor,
-                      n: int) -> torch.Tensor:
-  """Launch the CUDA kernel: float32 values (R, K), int32 offsets (N+1,)."""
+                      n: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """Launch the CUDA kernel: float32 values (R, K), int32 offsets (N+1,);
+  into `out`, a contiguous float32 (R, N), where given."""
   for name, t, dt in (("values", values, torch.float32),
                       ("offsets", offsets, torch.int32)):
     if t.device != values.device:
@@ -56,7 +58,12 @@ def segment_sums_cuda(values: torch.Tensor, offsets: torch.Tensor,
     raise ValueError(f"values must be (R, K) and offsets (N+1,) = ({n + 1},), "
                      f"got {tuple(values.shape)} and {tuple(offsets.shape)}")
   r, k = values.shape
-  out = torch.empty((r, n), dtype=torch.float32, device=values.device)
+  if out is None:
+    out = torch.empty((r, n), dtype=torch.float32, device=values.device)
+  elif (out.shape != (r, n) or out.dtype != torch.float32
+        or out.device != values.device or not out.is_contiguous()):
+    raise ValueError(f"out must be a contiguous float32 ({r}, {n}) on "
+                     f"{values.device}, got {out.dtype} {tuple(out.shape)}")
   SEGMENT_SUM.launch(values.data_ptr(), offsets.data_ptr(), r, k, n,
                      out.data_ptr(),
                      torch.cuda.current_stream(values.device).cuda_stream)
@@ -64,21 +71,24 @@ def segment_sums_cuda(values: torch.Tensor, offsets: torch.Tensor,
 
 
 def segment_sums_by_sorted_key(keys: torch.Tensor, values: torch.Tensor,
-                               offsets: torch.Tensor, n: int) -> torch.Tensor:
+                               offsets: torch.Tensor, n: int,
+                               out: Optional[torch.Tensor] = None) -> torch.Tensor:
   """Dense per-point sums of point-sorted slot values.
 
   keys: (K,) int32 ascending point ids (sentinel == n sorts last);
   values: (R, K) in the same order; offsets: (N+1,) int32 start of each
   point's segment (the mapper's point_offsets); n: number of points.
   Returns (R, N): column i is the sum of the values whose key is i; an
-  empty segment gives 0 and sentinel slots are never summed.
+  empty segment gives 0 and sentinel slots are never summed. With `out`
+  (R, N), the sums are written there and `out` is returned.
 
   The CUDA kernel reads the segments from `offsets`, the plain version
   groups by `keys`; both give the same sums when offsets are the keys'
   segment starts.
   """
   if values.is_cuda:
-    return segment_sums_cuda(values, offsets, n)
+    return segment_sums_cuda(values, offsets, n, out)
   if values.device.type != "cpu":
     raise ValueError(f"no segment sum for device {values.device}")
-  return segment_sums_plain(keys, values, n)
+  sums = segment_sums_plain(keys, values, n)
+  return sums if out is None else out.copy_(sums)

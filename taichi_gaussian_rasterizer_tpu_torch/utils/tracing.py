@@ -30,12 +30,19 @@ Spans of the port, and the counts they carry:
                     parent and frame from the forward's tgr.sh)
   tgr.map           map_to_tiles: candidates (keys sorted), overlaps (kept)
   tgr.map.sync      its one host sync, the candidate total
-  tgr.raster.fwd    the blend's autograd forward
+  tgr.raster.fwd    the blend's autograd forward: channels (F blended)
   tgr.raster.bwd    the blend's autograd backward
-  tgr.reduce.sort   the gradient reduction's stable sort and gather
+  tgr.reduce.sort   the gradient reduction's stable sort: rows (R), chunks
+                    (blocks of rows gathered apart); then one more span a
+                    block's gather
   tgr.project.bwd   from the end of tgr.raster.bwd to the last gradient
                     hook on the frame's Gaussians3D tensors (`tail`)
   tgr.optim.step    ParameterClass.step
+  tgr.field.decode  the feature decoder's resize and 1x1 convolution
+                    (models.feature_decoder): pixels (out), in_channels,
+                    out_channels
+  tgr.field.decode.bwd  its autograd backward (parent the forward's span),
+                    with the same counts
   tgr.dp.pack       the flat all-reduce's cat, casts and split, around
   tgr.dp.allreduce  its one dist.all_reduce
 """
