@@ -12,11 +12,13 @@ target, and the trained-scene path: a 1M-gaussian trained-like scene
 loaded from a 3DGS `.ply`, served and trained with saturation-front
 truncation, the multi-GPU module `parallel/` on a one-rank NCCL world,
 a feature-field frame of 34 blended channels, past the register
-kernels' 16, and tile sizes of 12 and 40 pixels. Phases, each printing
-its lines:
+kernels' 16, tile sizes of 12 and 40 pixels, and the optimizer step's
+kernel at the training cells' 6.1M points. Phases, each printing its
+lines:
 
 1. build -- nvcc builds csrc/raster_forward.cu, raster_backward.cu,
-   segment_sum.cu and sh.cu for sm_90a, one process each, all at once;
+   segment_sum.cu, sh.cu and optim.cu for sm_90a, one process each, all
+   at once;
    prints the build times, ptxas's register and spill summary, the
    card's name and power limit.
 2. forward kernel against plain -- about 20k gaussians at 640x480 in
@@ -159,6 +161,30 @@ its lines:
    output, finite non-zero gradients on all five tensors; the forward and
    the backward rows on 64 seeded tiles against the plain versions; each
    kernel's time beside its bound.
+12. the optimizer step's kernel (csrc/optim.cu) -- `ParameterClass.step`
+   through the kernel against the same steps through the plain passes of
+   optim/kernels.py on the card, every instance (Adam and LaProp; scalar,
+   vector and local_vector groups; visibility-aware, point_lr and mask_lr
+   each on and off; float32 and float64), three steps of fractional
+   weights with zeros at 20,011 points: one launch a group a step, scalar
+   groups bit for bit, vector groups within 1e-5 of the largest plain
+   value (the squared norm added in another order than torch.sum's), rows
+   never stepped unchanged. Then one scalar group at 6.1M points of each
+   width the training cells have (1, 3, 4, 48, 128): bit for bit, one
+   launch, weight-0 rows unchanged, the kernel's and the plain passes'
+   ms beside the bound (28 bytes an element and 8 a point); and the
+   whole steps of bicycle6m (6.1M x 59, five groups) and Feature 3DGS
+   (6.1M x 187, six), FractionalAdam at unit weights, from moments one
+   step old: the launch count set to 0 just before one step and read
+   just after (one a group), the same step from a copy of the state
+   through the plain passes, bit for bit (param, m, v and the total
+   weight), then the ms against the bound (28 bytes an element, 12 a
+   point), the plain step's ms and each one's device memory above the
+   state. The JSON line's optim_step entry is the bicycle6m step's:
+   its launches, its measured largest |kernel - plain| and its times.
+   The instances' cases, inputs and comparison are the ones
+   tests/test_torch_optim_kernel.py runs (`OPTIM_CASES`,
+   `optim_kernel_against_plain`).
 
 Truncation is exact, so phase 8 holds the truncated frame to the
 untruncated one bit for bit: it keeps each tile's bin up to where every
@@ -198,6 +224,7 @@ is {"ok": true, "device": {...}}.
 
 import argparse
 import dataclasses
+import itertools
 import json
 import re
 import statistics
@@ -206,6 +233,7 @@ import sys
 import time
 import types
 
+import numpy as np
 import torch
 
 CSRC = "taichi_gaussian_rasterizer_tpu_torch/csrc/"
@@ -216,6 +244,8 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                         "taichi_gaussian_rasterizer_tpu/ops/raster/backward.py:83"),
     "segment_sum": (CSRC + "segment_sum.cu",
                     "taichi_gaussian_rasterizer_tpu/ops/raster/reduce.py:37"),
+    "optim_step": (CSRC + "optim.cu",
+                   "none: taichi_gaussian_rasterizer_tpu/optim/kernels.py is plain jnp"),
 }
 TOL_P9999 = 1e-4
 TOL_MAX_BLENDING = 2e-2
@@ -223,6 +253,7 @@ TOL_ROWS_MAX = 1e-2
 TOL_SEGMENT = 1e-5
 TOL_SH_COLOR = 1e-5   # tests/test_torch_sh.py's float32 tolerances
 TOL_SH_D_SH = 1e-6
+TOL_OPTIM_VECTOR = 1e-5   # the squared norm in row order (optim_kernel_against_plain)
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -1205,6 +1236,247 @@ def feature_field(args, dev, card, kernels, scene, camera):
   }
 
 
+def plain_optimizer(fn):
+  """fn() with every CUDA group of `ParameterClass.step` stepped by the
+  plain passes on the card, in place of the kernel."""
+  from taichi_gaussian_rasterizer_tpu_torch.optim import group_step
+  on_kernel = group_step.step_group_cuda
+  group_step.step_group_cuda = group_step.step_group_plain
+  try:
+    return fn()
+  finally:
+    group_step.step_group_cuda = on_kernel
+
+
+def max_gap(pairs) -> float:
+  """The largest |a - b| over tensor pairs, 0 when each pair is equal bit
+  for bit."""
+  return max(0.0 if torch.equal(a, b) else float((a - b).abs().nan_to_num(1.0).max())
+             for a, b in pairs)
+
+
+# every instance of the optimizer kernel:
+# (rule, kind, visibility_aware, point_lr, mask_lr, dtype)
+OPTIM_CASES = list(itertools.product(
+    ("adam", "laprop"), ("scalar", "vector", "local_vector"), (False, True),
+    (False, True), (False, True), (torch.float32, torch.float64)))
+
+
+def optim_case_params(n, d, case, device, seed=0):
+  """Two groups: `x` (N, D) of the case's kind with its optional rates,
+  and `a` (N, 1) scalar with other betas and no bias correction; `aux`
+  is not optimized."""
+  from taichi_gaussian_rasterizer_tpu_torch.optim import (OptimizerSpec,
+                                                          ParameterClass)
+  rule, kind, visibility_aware, point_lr, mask_lr, dtype = case
+  rng = np.random.default_rng(seed)
+  tensors = {"x": torch.tensor(rng.normal(size=(n, d)), dtype=dtype),
+             "a": torch.tensor(rng.normal(size=(n, 1)), dtype=dtype),
+             "aux": torch.zeros(n, dtype=dtype)}
+  groups = {"x": dict(lr=0.1, type=kind),
+            "a": dict(lr=0.05, type="scalar", betas=(0.8, 0.99),
+                      bias_correction=False)}
+  if point_lr:
+    groups["x"]["point_lr"] = torch.tensor(rng.uniform(0.5, 1.5, n),
+                                           dtype=torch.float32, device=device)
+  if mask_lr:
+    groups["x"]["mask_lr"] = torch.tensor(rng.uniform(0.5, 1.5, d),
+                                          dtype=torch.float32, device=device)
+  return ParameterClass.create(
+      {k: v.to(device) for k, v in tensors.items()}, groups,
+      optimizer=OptimizerSpec(kernel=rule, visibility_aware=visibility_aware))
+
+
+def optim_case_inputs(n, d, steps, device, seed=1):
+  """Per step: gradients (NaN where the point is not visible, which the
+  step must not read through), visibility with zeros, fractional weights
+  and a well-conditioned basis."""
+  rng = np.random.default_rng(seed)
+  out = []
+  for _ in range(steps):
+    vis = rng.uniform(0.0, 3.0, n) * (rng.uniform(size=n) > 0.3)
+    grads = {"x": torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32),
+             "a": torch.tensor(rng.normal(size=(n, 1)), dtype=torch.float32)}
+    for g in grads.values():
+      g[vis == 0] = float("nan")
+    basis = rng.normal(size=(n, d, d)) * 0.3 + 2.0 * np.eye(d)
+    out.append(dict(grads={k: g.to(device) for k, g in grads.items()},
+                    vis=torch.tensor(vis, dtype=torch.float32, device=device),
+                    weight=torch.tensor(vis / 1.5, dtype=torch.float32,
+                                        device=device),
+                    basis=torch.tensor(basis, dtype=torch.float32, device=device)))
+  return out
+
+
+def optim_case_steps(params, inputs, kind):
+  for s in inputs:
+    kw = dict(basis=s["basis"]) if kind == "local_vector" else {}
+    if params.optimizer.visibility_aware:
+      params.step(s["grads"], visibility=s["vis"], **kw)
+    else:
+      params.step(s["grads"], weight=s["weight"], **kw)
+  return params
+
+
+def optim_kernel_against_plain(case, device, n, d, steps):
+  """`steps` steps of one instance (an entry of OPTIM_CASES) through the
+  kernel and through the plain passes on `device`, from the same start
+  on the same inputs. Asserts that the plain steps launch nothing, that
+  the parameters and moments keep their dtype, that the shared state
+  (total_weight, running_vis) is the same bit for bit, and that points
+  never stepped and the tensor not optimized keep their start, bit for
+  bit. Returns the kernel's launches (the count set to 0 just before)
+  and, for scalar and for vector groups, the largest |kernel - plain|
+  over param, m and v, over the largest |plain|."""
+  from taichi_gaussian_rasterizer_tpu_torch.optim import group_step
+  kind, dtype = case[1], case[-1]
+  inputs = optim_case_inputs(n, d, steps, device)
+  group_step.OPTIM_STEP.launch_count = 0
+  kernel = optim_case_steps(optim_case_params(n, d, case, device), inputs, kind)
+  launches = group_step.OPTIM_STEP.launch_count
+  plain = plain_optimizer(lambda: optim_case_steps(
+      optim_case_params(n, d, case, device), inputs, kind))
+  assert group_step.OPTIM_STEP.launch_count == launches
+  worst = {"scalar": 0.0, "vector": 0.0}
+  for k in ("x", "a"):
+    group = "vector" if kind != "scalar" and k == "x" else "scalar"
+    for got, want in ((kernel.tensors[k], plain.tensors[k]),
+                      (kernel.state[k].m, plain.state[k].m),
+                      (kernel.state[k].v, plain.state[k].v)):
+      assert got.dtype == want.dtype == dtype, (k, got.dtype, want.dtype)
+      worst[group] = max(worst[group],
+                         max_gap([(got, want)]) / float(want.abs().max()))
+  torch.testing.assert_close(kernel.total_weight, plain.total_weight, rtol=0, atol=0)
+  torch.testing.assert_close(kernel.running_vis, plain.running_vis, rtol=0, atol=0)
+  start = optim_case_params(n, d, case, device)
+  never = plain.total_weight == 0
+  assert never.any()
+  assert torch.equal(kernel.tensors["x"][never], start.tensors["x"][never])
+  assert torch.equal(kernel.tensors["aux"], start.tensors["aux"])
+  return launches, worst
+
+
+def optimizer_instances(dev):
+  """Phase 12: the optimizer kernel (csrc/optim.cu) against the plain passes
+  on the card, every instance at small N (module docstring)."""
+  n, d, steps = 20011, 3, 3
+  launches, worst = 0, {"scalar": 0.0, "vector": 0.0}
+  for case in OPTIM_CASES:
+    case_launches, case_worst = optim_kernel_against_plain(case, dev, n, d, steps)
+    assert case_launches == 2 * steps, (case, case_launches)
+    launches += case_launches
+    worst = {k: max(worst[k], case_worst[k]) for k in worst}
+  print(f"  {len(OPTIM_CASES)} instances (adam and laprop; scalar, vector, "
+        f"local_vector; visibility-aware, point_lr, mask_lr each on and off; "
+        f"float32 and float64), {steps} steps at N = {n}: {launches} launches "
+        f"(one a group a step); scalar groups' largest |diff| over the largest "
+        f"|plain| {worst['scalar']:.3e} (0: bit for bit), vector groups' "
+        f"{worst['vector']:.3e} (tolerance {TOL_OPTIM_VECTOR:.0e}: the squared "
+        f"norm added in another order than torch.sum's)")
+  assert worst["scalar"] == 0.0 and worst["vector"] <= TOL_OPTIM_VECTOR, worst
+
+
+def optimizer_widths(dev, points: int = 6_100_000):
+  """Phase 12's second part: the cells' widths at the benchmark's 6.1M
+  points, and the training cells' whole steps. Returns the JSON line's
+  numbers for the bicycle6m step: its launches, its largest |kernel -
+  plain| over param, m and v, the kernel's and the plain step's ms and
+  the bound."""
+  from taichi_gaussian_rasterizer_tpu_torch.optim import (
+      FractionalAdam, ParameterClass, group_step)
+  from taichi_gaussian_rasterizer_tpu_torch.optim.kernels import MomentState
+
+  kernel = group_step.OPTIM_STEP
+
+  # the cells' widths at the benchmark's 6.1M points, a scalar group each
+  gen = torch.Generator(device=dev).manual_seed(23)
+  lr = torch.tensor(1e-3, device=dev)
+  for d in (1, 3, 4, 48, 128):
+    w = torch.rand(points, generator=gen, device=dev) * 2 \
+        * (torch.rand(points, generator=gen, device=dev) > 0.1)
+    total = w + 2.0
+    start = [torch.randn((points, d), generator=gen, device=dev) * s for s in (1.0, 0.01)]
+    start.append(torch.rand((points, d), generator=gen, device=dev) * 1e-4)
+    grad = torch.randn((points, d), generator=gen, device=dev)
+    out = {}
+    for label, fn in (("kernel", group_step.step_group_cuda),
+                      ("plain", group_step.step_group_plain)):
+      p, m, v = (t.clone() for t in start)
+      kernel.launch_count = 0
+      args = (p, grad, MomentState(m, v), w, total, lr, "adam", "scalar",
+              (0.9, 0.999), 1e-16, True)
+      fn(*args)
+      out[label] = [t.clone() for t in (p, m, v)] + [kernel.launch_count]
+      # then timed on the same buffers, stepping them on
+      out[label + "_ms"] = cuda_ms(lambda: fn(*args), reps=10 if label == "kernel" else 3)
+    gap = max_gap(zip(out["kernel"][:3], out["plain"][:3]))
+    still = w == 0
+    assert torch.equal(out["kernel"][0][still], start[0][still])
+    assert out["kernel"][3] == 1 and out["plain"][3] == 0
+    nbytes = (28 * d + 8) * points
+    print(f"  {points} x {d}: |kernel - plain| max {gap:.3e}, weight-0 rows "
+          f"unchanged; 1 launch; kernel {out['kernel_ms']:.4f} ms, bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e9:.3f} GB), "
+          f"share {nbytes / HBM_BYTES_PER_S * 1e3 / out['kernel_ms']:.3f}; "
+          f"plain {out['plain_ms']:.3f} ms")
+    assert gap == 0.0, (d, gap)
+    del out, start, grad, p, m, v
+    torch.cuda.empty_cache()
+
+  # whole steps of the training cells: FractionalAdam, unit weights
+  widths = {"position": 3, "log_scaling": 3, "rotation": 4, "alpha_logit": 1,
+            "feature": 48}
+  entry = None
+  for label, groups in (("bicycle6m", widths),
+                        ("feat3dgs-bicycle6m", {**widths, "semantic_feature": 128})):
+    params = ParameterClass.create(
+        {k: torch.randn((points, w), generator=gen, device=dev)
+         for k, w in groups.items()}, {k: {"lr": 1e-3} for k in groups},
+        optimizer=FractionalAdam)
+    grads = {k: torch.randn_like(v) for k, v in params.tensors.items()}
+    ones = torch.ones(points, device=dev)
+    # a first step takes the moments and the total weight away from 0
+    params.step({k: torch.randn_like(v) for k, v in grads.items()}, weight=ones)
+    twin = params[torch.arange(points, device=dev)]   # a copy of every tensor
+    kernel.launch_count = 0
+    params.step(grads, weight=ones)
+    step_launches = kernel.launch_count
+    plain_optimizer(lambda: twin.step(grads, weight=ones))
+    assert kernel.launch_count == step_launches
+    err = max_gap([(params.total_weight, twin.total_weight)] + [
+        pair for k in groups
+        for pair in ((params.tensors[k], twin.tensors[k]),
+                     (params.state[k].m, twin.state[k].m),
+                     (params.state[k].v, twin.state[k].v))])
+    del twin
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_ms(lambda: params.step(grads, weight=ones), reps=10)
+    above = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms = plain_optimizer(
+        lambda: cuda_ms(lambda: params.step(grads, weight=ones), reps=3))
+    plain_above = torch.cuda.max_memory_allocated() - base
+    nbytes = (28 * sum(groups.values()) + 12) * points
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  {label} step, {points} x {sum(groups.values())} in "
+          f"{len(groups)} groups: {step_launches} launches; |kernel - plain| "
+          f"max {err:.3e} over param, m, v and the total weight (one step "
+          f"from the same state); kernel {ms:.4f} ms, bound {bound:.4f} ms "
+          f"({nbytes / 1e9:.3f} GB), share {bound / ms:.3f}; plain "
+          f"{plain_ms:.3f} ms; device memory above the state "
+          f"{above / 2**30:.3f} GiB (plain {plain_above / 2**30:.3f})")
+    assert step_launches == len(groups), step_launches
+    assert err == 0.0, (label, err)
+    if entry is None:
+      entry = (step_launches, err, ms, plain_ms,
+               dict(ms=bound, bound_by="bytes"), None)
+    del params, grads
+    torch.cuda.empty_cache()
+  return entry
+
+
 def tile_sizes(args, dev, card, kernels, scene, camera):
   """Phase 11: phase 3's scene at tile sizes that are not whole warps (12)
   or larger than a block (40), RGB and the 34-channel feature field
@@ -1307,6 +1579,7 @@ def main() -> int:
   from taichi_gaussian_rasterizer_tpu_torch.ops import sh as sh_ops
   from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
       backward, bounds, forward, reduce, reduce_slots_by_point, tiles)
+  from taichi_gaussian_rasterizer_tpu_torch.optim import group_step
   from taichi_gaussian_rasterizer_tpu_torch.utils.cuda_build import load_all
   from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import (
       random_3d_gaussians)
@@ -1337,13 +1610,15 @@ def main() -> int:
   print(f"[1 build] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
   t0 = time.perf_counter()
-  load_all(list(kernels.values()) + [sh_ops.SH_FORWARD])
+  load_all(list(kernels.values()) + [sh_ops.SH_FORWARD, group_step.OPTIM_STEP])
   sh_ops.SH_BACKWARD.load()   # the same library
-  print(f"[1 build] nvcc built the four sources for sm_90a in parallel in "
+  print(f"[1 build] nvcc built the five sources for sm_90a in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
   for name, k in kernels.items():
     print(f"  {KERNELS[name][0]}: ptxas: {ptxas_summary(k.build_log)}")
   print(f"  {CSRC}sh.cu: ptxas: {ptxas_summary(sh_ops.SH_FORWARD.build_log)}")
+  print(f"  {CSRC}optim.cu: ptxas: "
+        f"{ptxas_summary(group_step.OPTIM_STEP.build_log)}")
 
   with torch.no_grad():
     # ---- phase 2: kernel against plain, all four modes -----------------
@@ -1858,6 +2133,13 @@ def main() -> int:
   # ---- phase 11: tile sizes that are not whole warps or exceed a block -----
   print(f"[11 tile sizes] phase 3's scene at tiles 12 and 40, RGB and F = 34")
   tile_sizes(args, dev, card, kernels, scene, camera)
+
+  # ---- phase 12: the optimizer kernel --------------------------------------
+  print("[12 optimizer] csrc/optim.cu against the plain passes on the card; "
+        "the training cells' steps at 6.1M points")
+  torch.cuda.empty_cache()
+  optimizer_instances(dev)
+  measured["optim_step"] = optimizer_widths(dev)
   print(card_line())
   print(json.dumps({"kernels": [
       {"name": name, "route": "cuda", "source": KERNELS[name][0],

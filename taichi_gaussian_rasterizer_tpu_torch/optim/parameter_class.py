@@ -7,7 +7,8 @@ learning rates. Torch idiom where the JAX class is a pure pytree:
 
 * `step` updates the tensors and moments in place, under
   `torch.no_grad()`, with the dense mask-form update of `kernels.py`
-  (weight 0 is exactly a no-op), and returns the instance;
+  (weight 0 is exactly a no-op), as one CUDA kernel a group on the card
+  (`group_step.py`), and returns the instance;
 * indexing (`params[mask]`) and `append_tensors`, which change N, return
   a new instance whose every per-point tensor and state is filtered or
   zero-extended together; `replace`, `replace_tensors` and
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ..utils import tracing
-from . import kernels
+from . import group_step, kernels
 from .kernels import MomentState
 
 
@@ -224,63 +225,57 @@ class ParameterClass:
     weight: (N,) explicit fractional weights (fractional optimizers);
       defaults to (visibility > 0).
     basis: (N, D, D) per-point basis for local_vector groups.
+    Each group is one `group_step.step_group`: on a CUDA device one launch
+    of the kernel `csrc/optim.cu`, on the CPU the plain passes of
+    `kernels.py`, with the same values.
     Returns self. Under a torch.profiler profile the step is the span
-    `tgr.optim.step` of `utils.tracing`.
+    `tgr.optim.step` of `utils.tracing`, counting the elements stepped
+    (`elements`, the sum of N * D over the groups) and those the CUDA
+    kernel stepped (`kernel_elements`).
     """
-    with tracing.span("optim.step"):
-      return self._step(grads, visibility, weight, basis)
+    with tracing.span("optim.step") as span:
+      return self._step(grads, visibility, weight, basis, span)
 
-  def _step(self, grads, visibility, weight, basis) -> "ParameterClass":
+  def _step(self, grads, visibility, weight, basis, span) -> "ParameterClass":
     spec = self.optimizer
     if spec.visibility_aware:
       if visibility is None:
         raise ValueError("a visibility-aware step needs visibility")
-      visible = visibility > 0
       self.running_vis, weight = kernels.update_visibility(
-          self.running_vis, visibility, visible, beta=spec.vis_beta)
-    else:
-      if weight is None:
-        if visibility is None:
-          raise ValueError("a step needs weight or visibility")
-        weight = (visibility > 0).to(torch.float32)
-      visible = weight > 0
+          self.running_vis, visibility, visibility > 0, beta=spec.vis_beta)
+    elif weight is None:
+      if visibility is None:
+        raise ValueError("a step needs weight or visibility")
+      weight = (visibility > 0).to(torch.float32)
 
     self.total_weight = total_weight = self.total_weight + weight
-    damp = kernels.saturate(weight)[:, None]
+    elements = kernel_elements = 0
 
     for name, cfg in self.groups:
       if grads.get(name) is None:
         continue
       param = self.tensors[name]
       grad = _flat(grads[name]).to(torch.float32)
-
-      if spec.visibility_aware:
-        scale = spec.grad_scale / (visibility + spec.vis_smooth)
-        grad = torch.where(visible[:, None], grad * scale[:, None],
-                           torch.zeros_like(grad))
-
+      vis = visibility if spec.visibility_aware else None
       if cfg.type == "local_vector":
         if basis is None:
           raise ValueError("a local_vector group needs a basis")
+        if vis is not None:   # the scale comes ahead of the rotation
+          grad = group_step.visibility_scaled(grad, vis, spec.grad_scale,
+                                               spec.vis_smooth)
+          vis = None
         grad = kernels.rotate_to_basis(grad, basis, inverse=True)
 
-      lr_step, state = kernels.KERNELS[spec.kernel](
-          grad, self.state[name], weight, total_weight, cfg.betas,
-          cfg.eps, cfg.bias_correction, cfg.type)
-
-      if cfg.type == "local_vector":
-        lr_step = kernels.rotate_to_basis(lr_step, basis, inverse=False)
-
-      if self.mask_lr[name] is not None:
-        lr_step = lr_step * self.mask_lr[name][None, :]
-      if self.point_lr[name] is not None:
-        lr_step = lr_step * self.point_lr[name][:, None]
-
-      lr = self.learning_rates[name].to(param.dtype)
-      update = (lr_step * damp * lr).to(param.dtype)
-      param.sub_(update.reshape(param.shape))
-      self.state[name].m.copy_(state.m)
-      self.state[name].v.copy_(state.v)
+      on_kernel = group_step.step_group(
+          param, grad, self.state[name], weight, total_weight,
+          self.learning_rates[name], spec.kernel, cfg.type, cfg.betas, cfg.eps,
+          cfg.bias_correction, visibility=vis, grad_scale=spec.grad_scale,
+          vis_smooth=spec.vis_smooth, point_lr=self.point_lr[name],
+          mask_lr=self.mask_lr[name],
+          basis=basis if cfg.type == "local_vector" else None)
+      elements += grad.numel()
+      kernel_elements += grad.numel() if on_kernel else 0
+    span.count(elements=elements, kernel_elements=kernel_elements)
     return self
 
   # -- checkpointing -----------------------------------------------------

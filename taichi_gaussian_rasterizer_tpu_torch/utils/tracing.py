@@ -37,7 +37,9 @@ Spans of the port, and the counts they carry:
                     block's gather
   tgr.project.bwd   from the end of tgr.raster.bwd to the last gradient
                     hook on the frame's Gaussians3D tensors (`tail`)
-  tgr.optim.step    ParameterClass.step
+  tgr.optim.step    ParameterClass.step: elements (N * D over the groups
+                    stepped), kernel_elements (those the CUDA kernel
+                    stepped, 0 on the plain path)
   tgr.field.decode  the feature decoder's resize and 1x1 convolution
                     (models.feature_decoder): pixels (out), in_channels,
                     out_channels

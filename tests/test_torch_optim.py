@@ -23,6 +23,7 @@ from taichi_gaussian_rasterizer_tpu import optim as jax_optim
 from taichi_gaussian_rasterizer_tpu_torch.optim import (
     FractionalAdam, FractionalLaProp, ParameterClass, VisibilityAwareAdam,
     VisibilityAwareLaProp, kernels)
+from taichi_gaussian_rasterizer_tpu_torch.utils import tracing
 
 
 def make_params(n=16, d=3, seed=0, optimizer=FractionalAdam, **group_kw):
@@ -192,6 +193,26 @@ def test_state_dict_roundtrip():
   assert q.optimizer == p.optimizer
   q2 = pickle.loads(pickle.dumps(sd))
   assert set(q2["tensors"]) == set(sd["tensors"])
+
+
+@pytest.mark.parametrize("pos_type", ["scalar", "local_vector"])
+def test_step_span_counts_the_elements(pos_type):
+  """A profiled CPU step is one span `tgr.optim.step` counting the
+  elements of the groups it stepped (N * D: position 16 x 3, alpha 16 x
+  1), none of them by the CUDA kernel; a group without a gradient is not
+  counted."""
+  p = make_params(n=16, pos_type=pos_type)
+  kw = dict(basis=torch.eye(3).expand(16, 3, 3)) if pos_type == "local_vector" else {}
+  tracing.clear()
+  with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+    p.step({"position": torch.ones(16, 3), "alpha": torch.ones(16, 1)},
+           visibility=torch.ones(16), **kw)
+    p.step({"position": torch.ones(16, 3)}, visibility=torch.ones(16), **kw)
+  steps = [r for r in tracing.records() if r["name"] == "tgr.optim.step"]
+  tracing.clear()
+  assert [r["counts"] for r in steps] == [
+      dict(elements=64, kernel_elements=0), dict(elements=48, kernel_elements=0)]
+  assert all(r["parent"] is None and r["frame"] == r["id"] for r in steps)
 
 
 def test_attribute_access():
