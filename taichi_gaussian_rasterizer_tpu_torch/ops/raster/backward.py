@@ -32,7 +32,6 @@ past the real overlaps) hold 0. Blending mode only: the quantile mode
 passes no gradient.
 """
 
-import ctypes
 from typing import Optional, Sequence
 
 import torch
@@ -40,14 +39,16 @@ import torch
 from ...config import RasterConfig
 from ...utils.cuda_build import CudaKernel
 from ..mapper import TileMapping
-from .forward import _check_cuda_inputs, _check_tile_size, _pdf_alpha
+from .forward import _pdf_alpha, check_raster_shapes
 from .tiles import image_to_tiles
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-RASTER_BACKWARD = CudaKernel(
-    "raster_backward.cu", "tgr_raster_backward",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-     _I, _I, _I, ctypes.c_longlong, _P, _P])
+RASTER_BACKWARD = CudaKernel("raster_backward.cu", "tgr_raster_backward", """
+    f32 points, f32 features, i32 overlap_to_point, i32 tile_ranges,
+    i32 tile_order, i32 tile_counter, f32 image, f32 weight, f32 grad_image,
+    f32 grad_weight, int num_tiles, int tiles_x, int tile_size, int width,
+    int height, int num_features, float alpha_threshold,
+    float clamp_max_alpha, float saturate_threshold, int antialias,
+    int heuristic, int visibility, long long k_stride, f32 out""")
 
 # elements of one (tiles, pixels, points) field the plain version
 # materializes at a time; a dozen such fields are live at once
@@ -204,23 +205,6 @@ def raster_backward_plain(points: torch.Tensor, features: torch.Tensor,
   return out
 
 
-def _check_backward_inputs(points, features, mapping, config, image, weight,
-                           grad_image, grad_weight):
-  _check_cuda_inputs(points, features, mapping)
-  h, w = weight.shape
-  for name, t, shape in (("image", image, (h, w, features.shape[1])),
-                         ("weight", weight, (h, w)),
-                         ("grad_image", grad_image, (h, w, features.shape[1])),
-                         ("grad_weight", grad_weight, (h, w))):
-    if t.device != points.device or t.dtype != torch.float32:
-      raise TypeError(f"the CUDA backward kernel takes {name} as float32 on "
-                      f"{points.device}, got {t.dtype} on {t.device}")
-    if tuple(t.shape) != shape or not t.is_contiguous():
-      raise ValueError(f"{name} must be a contiguous {shape}, got "
-                       f"{tuple(t.shape)}")
-  _check_tile_size(config)
-
-
 def raster_backward_cuda(points: torch.Tensor, features: torch.Tensor,
                          mapping: TileMapping, config: RasterConfig,
                          image: torch.Tensor, weight: torch.Tensor,
@@ -232,10 +216,13 @@ def raster_backward_cuda(points: torch.Tensor, features: torch.Tensor,
   and the feature rows as products of a batch), any tile_size >= 1 (a
   tile larger than a block is covered in pixel chunks). Returns the (R, K)
   slot rows."""
-  _check_backward_inputs(points, features, mapping, config, image, weight,
-                         grad_image, grad_weight)
-  ts = config.tile_size
+  check_raster_shapes(points, features, config)
   h, w = weight.shape
+  for name, t, shape in (("image", image, (h, w, features.shape[1])),
+                         ("grad_image", grad_image, (h, w, features.shape[1])),
+                         ("grad_weight", grad_weight, (h, w))):
+    if tuple(t.shape) != shape:
+      raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
   th, tw = mapping.tile_shape
   k = mapping.overlap_to_point.shape[0]
   rows = live_grad_rows(features.shape[1], compute_point_heuristic, vis_row,
@@ -243,14 +230,11 @@ def raster_backward_cuda(points: torch.Tensor, features: torch.Tensor,
   out = torch.zeros((rows, k), dtype=torch.float32, device=points.device)
   counter = torch.empty(1, dtype=torch.int32, device=points.device)
   RASTER_BACKWARD.launch(
-      points.data_ptr(), features.data_ptr(),
-      mapping.overlap_to_point.data_ptr(), mapping.tile_ranges.data_ptr(),
-      mapping.tile_order.data_ptr(), counter.data_ptr(), image.data_ptr(),
-      weight.data_ptr(), grad_image.data_ptr(), grad_weight.data_ptr(),
-      th * tw, tw, ts, w, h, features.shape[1], config.alpha_threshold, config.clamp_max_alpha,
-      config.saturate_threshold, int(config.antialias),
-      int(compute_point_heuristic), int(vis_row), k, out.data_ptr(),
-      torch.cuda.current_stream(points.device).cuda_stream)
+      points, features, mapping.overlap_to_point, mapping.tile_ranges,
+      mapping.tile_order, counter, image, weight, grad_image, grad_weight,
+      th * tw, tw, config.tile_size, w, h, features.shape[1],
+      config.alpha_threshold, config.clamp_max_alpha, config.saturate_threshold,
+      config.antialias, compute_point_heuristic, vis_row, k, out)
   return out
 
 

@@ -35,7 +35,6 @@ differ from the Taichi reference's forward:
   mean coordinates are tile-local, as in the JAX kernels.
 """
 
-import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -45,11 +44,13 @@ from ...utils.cuda_build import CudaKernel
 from ..mapper import TileMapping
 from .tiles import image_to_tiles, tiles_to_image
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-RASTER_FORWARD = CudaKernel(
-    "raster_forward.cu", "tgr_raster_forward",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _I, _P, _P, _P, _P, _P])
+RASTER_FORWARD = CudaKernel("raster_forward.cu", "tgr_raster_forward", """
+    f32 points, f32 features, i32 overlap_to_point, i32 tile_ranges,
+    i32 tile_order, i32 tile_counter, int num_tiles, int tiles_x,
+    int tile_size, int width, int height, int num_features,
+    float alpha_threshold, float clamp_max_alpha, float saturate_threshold,
+    int antialias, int blending, f32 image, f32 weight, f32? visibility,
+    i32? tile_front""")
 
 # elements of one (tiles, pixels, points) field the plain version
 # materializes at a time; bounds its memory on large frames
@@ -204,30 +205,18 @@ def _tile_fronts(t_incl: torch.Tensor, stop: float, inside: torch.Tensor,
   return torch.where(counts > 0, front, 0).to(torch.int32)
 
 
-def _check_cuda_inputs(points, features, mapping):
-  f = features.shape[1] if features.ndim == 2 else -1
-  for name, t, dt in (("points", points, torch.float32),
-                      ("features", features, torch.float32),
-                      ("overlap_to_point", mapping.overlap_to_point, torch.int32),
-                      ("tile_ranges", mapping.tile_ranges, torch.int32)):
-    if t.device != points.device:
-      raise ValueError(f"{name} is on {t.device}, points on {points.device}")
-    if t.dtype != dt:
-      raise TypeError(f"the CUDA raster kernel takes {name} as {dt}, got {t.dtype}")
-    if not t.is_contiguous():
-      raise ValueError(f"{name} must be contiguous")
+def check_raster_shapes(points: torch.Tensor, features: torch.Tensor,
+                        config: RasterConfig) -> None:
+  """The shapes both raster kernels take: (N, 7) points, (N, F) features
+  with F >= 1, tile_size >= 1."""
   if points.ndim != 2 or points.shape[1] != 7:
     raise ValueError(f"points must be (N, 7), got {tuple(points.shape)}")
-  if f < 1 or features.shape[0] != points.shape[0]:
-    raise ValueError(f"the CUDA raster kernel takes (N, F) features with "
+  if (features.ndim != 2 or features.shape[1] < 1
+      or features.shape[0] != points.shape[0]):
+    raise ValueError(f"the CUDA raster kernels take (N, F) features with "
                      f"1 <= F, got {tuple(features.shape)}")
-
-
-def _check_tile_size(config: RasterConfig) -> int:
-  ts = config.tile_size
-  if ts < 1:
-    raise ValueError(f"tile_size {ts}: a tile is at least one pixel")
-  return ts
+  if config.tile_size < 1:
+    raise ValueError(f"tile_size {config.tile_size}: a tile is at least one pixel")
 
 
 def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
@@ -240,8 +229,7 @@ def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
   (a tile larger than a block is covered in pixel chunks). Returns (image
   (H, W, F), weight (H, W)) [+ per-slot visibility (K,)] [+ saturation
   front (T,)]."""
-  _check_cuda_inputs(points, features, mapping)
-  ts = _check_tile_size(config)
+  check_raster_shapes(points, features, config)
   w, h = image_size
   th, tw = mapping.tile_shape
   image = torch.empty((h, w, features.shape[1]), dtype=torch.float32,
@@ -253,15 +241,11 @@ def rasterize_tiles_cuda(points: torch.Tensor, features: torch.Tensor,
            if tile_front else None)
   counter = torch.empty(1, dtype=torch.int32, device=points.device)
   RASTER_FORWARD.launch(
-      points.data_ptr(), features.data_ptr(),
-      mapping.overlap_to_point.data_ptr(), mapping.tile_ranges.data_ptr(),
-      mapping.tile_order.data_ptr(), counter.data_ptr(), th * tw, tw, ts, w, h,
+      points, features, mapping.overlap_to_point, mapping.tile_ranges,
+      mapping.tile_order, counter, th * tw, tw, config.tile_size, w, h,
       features.shape[1], config.alpha_threshold, config.clamp_max_alpha,
-      config.saturate_threshold, int(config.antialias),
-      int(config.use_alpha_blending), image.data_ptr(), weight.data_ptr(),
-      None if vis is None else vis.data_ptr(),
-      None if front is None else front.data_ptr(),
-      torch.cuda.current_stream(points.device).cuda_stream)
+      config.saturate_threshold, config.antialias, config.use_alpha_blending,
+      image, weight, vis, front)
   return ((image, weight) + (() if vis is None else (vis,))
           + (() if front is None else (front,)))
 

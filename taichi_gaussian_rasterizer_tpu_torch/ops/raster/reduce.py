@@ -17,17 +17,15 @@ the port's `truncate_mapping` recomputes `point_offsets` for the kept
 slots instead).
 """
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from ...utils.cuda_build import CudaKernel
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-SEGMENT_SUM = CudaKernel(
-    "segment_sum.cu", "tgr_segment_sum",
-    [_P, _P, _I, ctypes.c_longlong, _I, _P, _P])
+SEGMENT_SUM = CudaKernel("segment_sum.cu", "tgr_segment_sum",
+                         "f32 values, i32 offsets, int rows, long long k, "
+                         "int n, f32 out")
 
 
 def segment_sums_plain(keys: torch.Tensor, values: torch.Tensor,
@@ -45,28 +43,15 @@ def segment_sums_cuda(values: torch.Tensor, offsets: torch.Tensor,
                       n: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
   """Launch the CUDA kernel: float32 values (R, K), int32 offsets (N+1,);
   into `out`, a contiguous float32 (R, N), where given."""
-  for name, t, dt in (("values", values, torch.float32),
-                      ("offsets", offsets, torch.int32)):
-    if t.device != values.device:
-      raise ValueError(f"{name} is on {t.device}, values on {values.device}")
-    if t.dtype != dt:
-      raise TypeError(f"the CUDA segment-sum kernel takes {name} as {dt}, "
-                      f"got {t.dtype}")
-    if not t.is_contiguous():
-      raise ValueError(f"{name} must be contiguous")
   if values.ndim != 2 or offsets.shape != (n + 1,):
     raise ValueError(f"values must be (R, K) and offsets (N+1,) = ({n + 1},), "
                      f"got {tuple(values.shape)} and {tuple(offsets.shape)}")
   r, k = values.shape
   if out is None:
     out = torch.empty((r, n), dtype=torch.float32, device=values.device)
-  elif (out.shape != (r, n) or out.dtype != torch.float32
-        or out.device != values.device or not out.is_contiguous()):
-    raise ValueError(f"out must be a contiguous float32 ({r}, {n}) on "
-                     f"{values.device}, got {out.dtype} {tuple(out.shape)}")
-  SEGMENT_SUM.launch(values.data_ptr(), offsets.data_ptr(), r, k, n,
-                     out.data_ptr(),
-                     torch.cuda.current_stream(values.device).cuda_stream)
+  elif out.shape != (r, n):
+    raise ValueError(f"out must be ({r}, {n}), got {tuple(out.shape)}")
+  SEGMENT_SUM.launch(values, offsets, r, k, n, out)
   return out
 
 

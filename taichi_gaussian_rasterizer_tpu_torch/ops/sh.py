@@ -12,21 +12,24 @@ kernels to the plain version. `num_sh_coeffs` is left out: no caller in
 the port.
 """
 
-import ctypes
 import math
 from typing import Optional
 
 import torch
 
 from ..utils import tracing
-from ..utils.cuda_build import CudaKernel
+from ..utils.cuda_build import CudaKernel, aligned
 from . import lib
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-SH_FORWARD = CudaKernel("sh.cu", "tgr_sh_forward",
-                        [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P])
-SH_BACKWARD = CudaKernel("sh.cu", "tgr_sh_backward",
-                         [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _P])
+# the coefficients and their gradient are read and written as 16-byte
+# vectors where a row is whole vectors
+SH_FORWARD = CudaKernel("sh.cu", "tgr_sh_forward", """
+    real@16 sh, real positions, real camera, long long n, int channels,
+    int k, int double_precision, real color, u8? mask""")
+SH_BACKWARD = CudaKernel("sh.cu", "tgr_sh_backward", """
+    real grad, u8 mask, real positions, real camera, real@16? sh,
+    long long n, int channels, int k, int double_precision, real@16? d_sh,
+    real? d_dir""")
 
 
 def check_sh_degree(sh_features: torch.Tensor) -> int:
@@ -88,16 +91,8 @@ def evaluate_sh_plain(sh_params: torch.Tensor, positions: torch.Tensor,
 
 def _kernel_inputs(sh_params: torch.Tensor, positions: torch.Tensor,
                    camera_pos: torch.Tensor):
-  """The kernels' inputs, checked: one dtype (float32 or float64) and
-  device, contiguous, the coefficients 16-byte aligned."""
-  dtype, device = sh_params.dtype, sh_params.device
-  if dtype not in (torch.float32, torch.float64):
-    raise TypeError(f"the CUDA SH kernels take float32 or float64, got {dtype}")
-  for name, t in (("positions", positions), ("camera_pos", camera_pos)):
-    if t.device != device:
-      raise ValueError(f"{name} is on {t.device}, sh_params on {device}")
-    if t.dtype != dtype:
-      raise TypeError(f"{name} is {t.dtype}, sh_params {dtype}")
+  """The kernels' inputs: their shapes checked, contiguous, the
+  coefficients 16-byte aligned."""
   n, c, k = sh_params.shape
   if positions.shape != (n, 3) or camera_pos.shape != (3,):
     raise ValueError(f"positions must be ({n}, 3) and camera_pos (3,), got "
@@ -107,10 +102,7 @@ def _kernel_inputs(sh_params: torch.Tensor, positions: torch.Tensor,
   if n * c * k >= 2 ** 31:
     raise ValueError(f"the CUDA SH kernels take fewer than 2^31 coefficients, "
                      f"got {n} x {c} x {k}")
-  sh = sh_params.contiguous()
-  if sh.data_ptr() % 16:
-    sh = sh.clone()
-  return sh, positions.contiguous(), camera_pos.contiguous()
+  return aligned(sh_params, 16), positions.contiguous(), camera_pos.contiguous()
 
 
 def _launch_forward(sh: torch.Tensor, positions: torch.Tensor,
@@ -120,10 +112,8 @@ def _launch_forward(sh: torch.Tensor, positions: torch.Tensor,
   n, c, k = sh.shape
   color = sh.new_empty((n, c))
   mask = torch.empty((n, c), dtype=torch.uint8, device=sh.device) if gate else None
-  SH_FORWARD.launch(sh.data_ptr(), positions.data_ptr(), camera_pos.data_ptr(),
-                    n, c, k, int(sh.dtype == torch.float64), color.data_ptr(),
-                    None if mask is None else mask.data_ptr(),
-                    torch.cuda.current_stream(sh.device).cuda_stream)
+  SH_FORWARD.launch(sh, positions, camera_pos, n, c, k,
+                    sh.dtype == torch.float64, color, mask)
   return color, mask
 
 
@@ -136,12 +126,8 @@ def _launch_backward(grad: torch.Tensor, mask: torch.Tensor,
   n, c = grad.shape
   d_sh = grad.new_empty((n, c, k)) if want_sh else None
   d_dir = grad.new_empty((n, c, 3)) if sh is not None else None
-  SH_BACKWARD.launch(grad.data_ptr(), mask.data_ptr(), positions.data_ptr(),
-                     camera_pos.data_ptr(), None if sh is None else sh.data_ptr(),
-                     n, c, k, int(grad.dtype == torch.float64),
-                     None if d_sh is None else d_sh.data_ptr(),
-                     None if d_dir is None else d_dir.data_ptr(),
-                     torch.cuda.current_stream(grad.device).cuda_stream)
+  SH_BACKWARD.launch(grad, mask, positions, camera_pos, sh, n, c, k,
+                     grad.dtype == torch.float64, d_sh, d_dir)
   return d_sh, d_dir
 
 

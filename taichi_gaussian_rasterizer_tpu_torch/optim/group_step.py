@@ -13,7 +13,6 @@ given. The learning rate is read on the device, so the step adds no host
 sync. Nothing falls back from the kernel to the plain version.
 """
 
-import ctypes
 import math
 from typing import Optional
 
@@ -23,27 +22,13 @@ from ..utils.cuda_build import CudaKernel
 from . import kernels
 from .kernels import MomentState
 
-_P, _L, _I, _F, _D = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_double)
-OPTIM_STEP = CudaKernel("optim.cu", "tgr_optim_step",
-                        [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P, _P, _P, _F, _F,
-                         _P, _P, _P, _P, _F, _F, _D, _I, _P])
+OPTIM_STEP = CudaKernel("optim.cu", "tgr_optim_step", """
+    real param, f32 grad, real m, real v, long long n, long long d,
+    int double_precision, int rule, int vector_kind, f32 weight,
+    f32 total_weight, f32? visibility, float grad_scale, float vis_smooth,
+    f32? point_lr, f32? mask_lr, f32? basis, f32 lr, float beta1,
+    float beta2, double eps, int bias_correction""")
 RULES = {"adam": 0, "laprop": 1}
-
-
-def _ptr(t: Optional[torch.Tensor]):
-  return None if t is None else t.data_ptr()
-
-
-def _float32_input(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
-  """A float32 input of the kernel on `device` with `shape`, contiguous."""
-  if t.device != device:
-    raise ValueError(f"{name} is on {t.device}, the parameters on {device}")
-  if t.dtype != torch.float32:
-    raise TypeError(f"the CUDA optimizer step takes {name} in float32, got {t.dtype}")
-  if tuple(t.shape) != tuple(shape):
-    raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
-  return t.contiguous()
 
 
 def step_group(param: torch.Tensor, grad: torch.Tensor, state: MomentState,
@@ -109,46 +94,31 @@ def step_group_cuda(param, grad, state, weight, total_weight, lr, rule, kind,
                     betas, eps, bias_correction, visibility=None,
                     grad_scale=1.0, vis_smooth=0.01, point_lr=None,
                     mask_lr=None, basis=None) -> None:
-  """The kernel: one launch, after checking every input's device, dtype,
-  shape and contiguity."""
-  device, dtype = param.device, param.dtype
-  if device.type != "cuda":
-    raise ValueError(f"the optimizer kernel runs on CUDA tensors, got {device}")
-  if dtype not in (torch.float32, torch.float64):
-    raise TypeError(f"the CUDA optimizer step takes float32 or float64 "
-                    f"parameters, got {dtype}")
-  if not param.is_contiguous():
-    raise ValueError("the CUDA optimizer step updates contiguous parameters in place")
+  """The kernel: one launch, after checking every input's shape."""
   if rule not in RULES:
     raise ValueError(f"unknown update rule {rule!r}")
   vector = kind in ("vector", "local_vector")
   if kind not in ("scalar", "vector", "local_vector"):
     raise ValueError(f"unknown group type {kind!r}")
+  if basis is not None and not vector:
+    raise ValueError("a basis rotates the step of a vector group only")
   n, d = param.shape[0], math.prod(param.shape[1:])
-  grad = _float32_input("grad", grad, (n, d), device)
   m, v = state
-  for name, t, shape in (("m", m, (n, d)), ("v", v, (n,) if vector else (n, d))):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-        or not t.is_contiguous():
-      raise ValueError(f"state {name} must be a contiguous {dtype} {shape} on "
-                       f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-  weight = _float32_input("weight", weight, (n,), device)
-  total_weight = _float32_input("total_weight", total_weight, (n,), device)
-  lr = _float32_input("lr", lr.reshape(1), (1,), device)
-  if visibility is not None:
-    visibility = _float32_input("visibility", visibility, (n,), device)
-  if point_lr is not None:
-    point_lr = _float32_input("point_lr", point_lr, (n,), device)
-  if mask_lr is not None:
-    mask_lr = _float32_input("mask_lr", mask_lr, (d,), device)
-  if basis is not None:
-    if not vector:
-      raise ValueError("a basis rotates the step of a vector group only")
-    basis = _float32_input("basis", basis, (n, d, d), device)
+  # the kernel reads its float32 inputs packed, and they may come strided
+  # (the 2D trainer's gradients are column views of the reduction's sums)
+  grad, weight, total_weight, visibility, point_lr, mask_lr, basis = (
+      None if t is None else t.contiguous() for t in
+      (grad, weight, total_weight, visibility, point_lr, mask_lr, basis))
+  for name, t, shape in (
+      ("grad", grad, (n, d)), ("m", m, (n, d)),
+      ("v", v, (n,) if vector else (n, d)), ("weight", weight, (n,)),
+      ("total_weight", total_weight, (n,)), ("visibility", visibility, (n,)),
+      ("point_lr", point_lr, (n,)), ("mask_lr", mask_lr, (d,)),
+      ("basis", basis, (n, d, d))):
+    if t is not None and tuple(t.shape) != shape:
+      raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
   OPTIM_STEP.launch(
-      param.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(), n, d,
-      int(dtype == torch.float64), RULES[rule], int(vector), weight.data_ptr(),
-      total_weight.data_ptr(), _ptr(visibility), grad_scale, vis_smooth,
-      _ptr(point_lr), _ptr(mask_lr), _ptr(basis), lr.data_ptr(), betas[0],
-      betas[1], eps, int(bias_correction),
-      torch.cuda.current_stream(device).cuda_stream)
+      param, grad, m, v, n, d, param.dtype == torch.float64, RULES[rule],
+      vector, weight, total_weight, visibility, grad_scale, vis_smooth,
+      point_lr, mask_lr, basis, lr.reshape(1), betas[0], betas[1], eps,
+      bias_correction)

@@ -550,7 +550,7 @@ def _boxless_kernels(tmp_dir):
     header.write_text(text.replace(_BOX_TEST, "return false;"))
     kernels = {"RASTER_FORWARD": forward.RASTER_FORWARD,
                "RASTER_BACKWARD": backward.RASTER_BACKWARD}
-    built = {name: cuda_build.CudaKernel(k.source, k.symbol, k.argtypes)
+    built = {name: cuda_build.CudaKernel(k.source, k.symbol, k.signature)
              for name, k in kernels.items()}
     saved = cuda_build.CSRC_DIR, cuda_build.BUILD_DIR
     cuda_build.CSRC_DIR, cuda_build.BUILD_DIR = csrc, tmp_dir / "build"

@@ -93,7 +93,9 @@ def test_kernel_takes_any_width_and_alignment(cuda_device, d, offset):
 
 def test_cpu_groups_take_the_plain_passes():
   """On CPU tensors `step_group` is the plain version and says so; the
-  kernel's wrapper refuses them rather than fall back."""
+  kernel's wrapper refuses them rather than fall back, and refuses
+  float16 for its dtype, before any build; a strided gradient (the 2D
+  trainer's are column views) is packed, not refused."""
   n, d = 50, 3
   rng = np.random.default_rng(2)
   p = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32)
@@ -109,3 +111,9 @@ def test_cpu_groups_take_the_plain_passes():
   assert torch.equal(p, q) and not torch.equal(p, start)
   with pytest.raises(ValueError, match="CUDA tensors"):
     group_step.step_group_cuda(*args(p))
+  with pytest.raises(TypeError, match="float32 or float64"):
+    group_step.step_group_cuda(*args(p.half()))
+  strided = list(args(p))
+  strided[1] = torch.ones(d, n).T
+  with pytest.raises(ValueError, match="CUDA tensors"):
+    group_step.step_group_cuda(*strided)

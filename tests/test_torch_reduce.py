@@ -69,7 +69,9 @@ def test_cpu_tensor_takes_the_plain_segment_sum():
 
 
 def test_segment_sum_kernel_input_checks():
-  """The checks the CUDA wrapper runs before a launch."""
+  """The checks the CUDA wrapper runs before a launch, here on CPU tensors
+  and so before any build; inputs that pass them reach the launch, which
+  refuses CPU tensors."""
   keys, values, offsets, _ = sorted_stream(2, 40, 3, 0, np.float32)
   with pytest.raises(TypeError, match="float32"):
     reduce.segment_sums_cuda(torch.tensor(values).double(), torch.tensor(offsets), 40)
@@ -77,6 +79,8 @@ def test_segment_sum_kernel_input_checks():
     reduce.segment_sums_cuda(torch.tensor(values), torch.tensor(offsets).long(), 40)
   with pytest.raises(ValueError, match=r"\(N\+1,\)"):
     reduce.segment_sums_cuda(torch.tensor(values), torch.tensor(offsets), 41)
+  with pytest.raises(ValueError, match="CUDA tensors"):
+    reduce.segment_sums_cuda(torch.tensor(values), torch.tensor(offsets), 40)
 
 
 def test_reduce_slots_by_point():

@@ -35,7 +35,7 @@ import taichi_gaussian_rasterizer_tpu as tgr_jax
 from taichi_gaussian_rasterizer_tpu_torch import (
     RasterConfig, render_gaussians, render_with_heuristics, viewspace_gradient)
 from taichi_gaussian_rasterizer_tpu_torch.ops.mapper import map_to_tiles
-from taichi_gaussian_rasterizer_tpu_torch.ops.raster import forward, tiles
+from taichi_gaussian_rasterizer_tpu_torch.ops.raster import backward, forward, tiles
 from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import (
     random_3d_gaussians, random_camera)
 
@@ -314,27 +314,36 @@ def test_cpu_tensor_takes_the_plain_path():
 @pytest.mark.parametrize("bad", ["float64", "too_many_features", "bad_shape",
                                  "tile_size"])
 def test_kernel_input_checks(bad):
-  """The checks the CUDA wrapper runs before a launch: float32 only (a
-  float64 CUDA input raises TypeError), (N, 7) points and (N, F) features
-  with F >= 1, tile_size >= 1. No width is too many: F = 1024 passes the
-  checks (the kernels blend wide features in channel chunks), F = 0
-  raises; no tile is too large or too small but an empty one."""
-  points, depth, feats = scenes.points2d(21, 50, (32, 24), n_features=3)
+  """The checks the CUDA wrappers of both raster kernels run before a
+  launch, here on CPU tensors and so before any build: float32 only (a
+  float64 input raises TypeError), (N, 7) points and (N, F) features with
+  F >= 1, tile_size >= 1; inputs that pass them reach the launch, which
+  refuses CPU tensors. No width is too many: F = 1024 passes the checks
+  (the kernels blend wide features in channel chunks), F = 0 raises; no
+  tile is too large or too small but an empty one."""
+  size = (32, 24)
+  points, depth, feats = scenes.points2d(21, 50, size, n_features=3)
   pts, f = scenes.to_torch(points, np.float32), scenes.to_torch(feats, np.float32)
-  mapping = map_to_tiles(pts, scenes.to_torch(depth, np.float32), (32, 24),
+  mapping = map_to_tiles(pts, scenes.to_torch(depth, np.float32), size,
                          RasterConfig(tile_size=8))
+
+  def refused(error, match, pts, f, config=RasterConfig(tile_size=8)):
+    image = torch.zeros(size[1], size[0], f.shape[-1])
+    weight = torch.zeros(size[1], size[0])
+    for call in (lambda: forward.rasterize_tiles_cuda(pts, f, mapping, size, config),
+                 lambda: backward.raster_backward_cuda(
+                     pts, f, mapping, config, image, weight, image, weight)):
+      with pytest.raises(error, match=match):
+        call()
+
   if bad == "float64":
-    with pytest.raises(TypeError, match="float32"):
-      forward._check_cuda_inputs(pts.double(), f, mapping)
+    refused(TypeError, "float32", pts.double(), f)
   elif bad == "too_many_features":
-    forward._check_cuda_inputs(pts, torch.zeros(50, 1024), mapping)
-    with pytest.raises(ValueError, match="1 <= F"):
-      forward._check_cuda_inputs(pts, torch.zeros(50, 0), mapping)
+    refused(ValueError, "CUDA tensors", pts, torch.zeros(50, 1024))
+    refused(ValueError, "1 <= F", pts, torch.zeros(50, 0))
   elif bad == "tile_size":
     for ts in (1, 4, 12, 40, 64):
-      assert forward._check_tile_size(RasterConfig(tile_size=ts)) == ts
-    with pytest.raises(ValueError, match="at least one pixel"):
-      forward._check_tile_size(RasterConfig(tile_size=0))
+      refused(ValueError, "CUDA tensors", pts, f, RasterConfig(tile_size=ts))
+    refused(ValueError, "at least one pixel", pts, f, RasterConfig(tile_size=0))
   else:
-    with pytest.raises(ValueError, match=r"\(N, 7\)"):
-      forward._check_cuda_inputs(pts[:, :6].contiguous(), f, mapping)
+    refused(ValueError, r"\(N, 7\)", pts[:, :6].contiguous(), f)

@@ -179,19 +179,27 @@ def test_function_writes_no_gate_without_a_gradient(monkeypatch):
   assert seen == [False, False, True]
 
 
-@pytest.mark.parametrize("case", ["half", "mixed", "shape", "degree4"])
+@pytest.mark.parametrize("case", ["half", "mixed", "shape", "degree4", "cpu"])
 def test_kernel_inputs_are_checked(case):
+  """`evaluate_sh_cuda` on CPU tensors, so before any build: a dtype the
+  kernels do not take, or two float types, raise TypeError; a shape they
+  do not take raises ValueError, and so do float32 inputs on the CPU."""
   sh, pos, cam = inputs(10, 3, 3, torch.float32)
+  error, match = ValueError, None
   if case == "half":
     sh, pos, cam = sh.half(), pos.half(), cam.half()
+    error, match = TypeError, "float32 or float64"
   elif case == "mixed":
     cam = cam.double()
+    error, match = TypeError, "camera"
   elif case == "shape":
     pos = pos[:9]
-  else:
+  elif case == "degree4":
     sh = torch.zeros(10, 3, 25)
-  with pytest.raises((TypeError, ValueError)):
-    sh_ops._kernel_inputs(sh, pos, cam)
+  else:
+    match = "CUDA tensors"
+  with pytest.raises(error, match=match):
+    sh_ops.evaluate_sh_cuda(sh, pos, cam)
 
 
 def test_kernel_inputs_are_contiguous_and_aligned():

@@ -8,6 +8,7 @@ indexing, sorts and checkpoints exact.
 """
 
 import ast
+import ctypes
 import dataclasses
 import math
 from pathlib import Path
@@ -300,6 +301,90 @@ def test_debug_mode_sets_and_restores():
     with runtime.debug_mode():
       raise KeyError("x")
   assert not torch.is_anomaly_enabled() and not cuda_build.SYNC_AFTER_LAUNCH
+
+
+# ---- the Python-CUDA boundary ----------------------------------------------
+
+_SIGNATURE = "real@16 x, real y, i32 index, u8? gate, int n, float scale"
+
+
+def _launch_args(case):
+  args = dict(x=torch.zeros(8), y=torch.zeros(8),
+              index=torch.zeros(8, dtype=torch.int32),
+              gate=torch.zeros(8, dtype=torch.uint8), n=8, scale=0.5)
+  if case == "wrong_dtype":
+    args["index"] = args["index"].long()
+  elif case == "not_a_float_type":
+    args["x"], args["y"] = args["x"].half(), args["y"].half()
+  elif case == "mixed_float_types":
+    args["y"] = args["y"].double()
+  elif case == "none_required":
+    args["index"] = None
+  elif case == "none_optional":
+    args["gate"] = None
+  elif case == "strided":
+    args["x"] = torch.zeros(16)[::2]
+  elif case == "misaligned":
+    args["x"] = torch.zeros(9)[1:]          # one float past a 64-byte boundary
+  elif case == "int_too_large":
+    args["n"] = 2 ** 31
+  elif case == "float_for_int":
+    args["n"] = 8.0
+  elif case == "too_few":
+    del args["scale"]
+  return list(args.values())
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("wrong_dtype", TypeError, "tgr_test: index takes torch.int32, got torch.int64"),
+    ("not_a_float_type", TypeError, "tgr_test: x takes float32 or float64"),
+    ("mixed_float_types", TypeError, "tgr_test: y takes torch.float32, got torch.float64"),
+    ("none_required", TypeError, "tgr_test: index is required"),
+    ("none_optional", ValueError, "tgr_test: x is on cpu"),
+    ("strided", ValueError, "tgr_test: x must be contiguous"),
+    ("misaligned", ValueError, "tgr_test: x must be 16-byte aligned"),
+    ("cpu", ValueError, "tgr_test: x is on cpu: tgr_test takes CUDA tensors"),
+    ("int_too_large", ValueError, "tgr_test: n = 2147483648 does not fit"),
+    ("float_for_int", TypeError, "cannot be interpreted as an integer"),
+    ("too_few", TypeError, "tgr_test takes 6 arguments, got 5"),
+])
+def test_cuda_kernel_checks_every_argument_before_a_build(monkeypatch, case,
+                                                          error, match):
+  """`CudaKernel.launch` checks each argument against its slot of a
+  declared signature, dtypes (TypeError) ahead of layout and device
+  (ValueError), before anything is built or loaded: every case here
+  raises on the CPU, and None in an optional slot gets past its slot to
+  the device check."""
+  def no_build(source):
+    raise AssertionError(f"built {source}")
+
+  monkeypatch.setattr(cuda_build, "build", no_build)
+  kernel = cuda_build.CudaKernel("none.cu", "tgr_test", _SIGNATURE)
+  with pytest.raises(error, match=match):
+    kernel.launch(*_launch_args(case))
+  assert kernel.launch_count == 0
+
+
+def test_cuda_kernel_derives_its_argtypes(monkeypatch):
+  """The ctypes argument types come from the signature: a pointer for
+  every tensor slot and for the trailing stream, each scalar's C type; a
+  signature with an unknown type is refused."""
+  class Library:
+    tgr_test = type("Entry", (), {})()
+    tgr_error_string = type("Entry", (), {})()
+
+  monkeypatch.setattr(cuda_build, "build", lambda source: ("lib.so", "log"))
+  monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: Library)
+  kernel = cuda_build.CudaKernel("none.cu", "tgr_test", _SIGNATURE)
+  fn = kernel.load()
+  p = ctypes.c_void_p
+  assert fn.argtypes == [p, p, p, p, ctypes.c_int, ctypes.c_float, p]
+  assert fn.restype is ctypes.c_int and kernel.build_log == "log"
+  assert [s.name for s in kernel.slots] == ["x", "y", "index", "gate", "n", "scale"]
+  assert [s.optional for s in kernel.slots] == [False, False, False, True, False, False]
+  assert kernel.slots[0].align == 16 and kernel.slots[0].dtype is None
+  with pytest.raises(ValueError, match="int64 n"):
+    cuda_build.parse_signature("f32 x, int64 n")
 
 
 # ---- the port imports no JAX -------------------------------------------------

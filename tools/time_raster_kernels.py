@@ -103,19 +103,6 @@ ABLATIONS = {
 }
 
 
-def cuda_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
-  for _ in range(warmup):
-    fn()
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  for _ in range(reps):
-    fn()
-  end.record()
-  torch.cuda.synchronize()
-  return start.elapsed_time(end) / reps
-
-
 def main() -> int:
   here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
   parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -267,7 +254,7 @@ def main() -> int:
         result.setdefault("refused", {})[name] = str(e)[:120]
         del calls[name]
     for name, fn in calls.items():
-      ms[name] = cuda_ms(fn)
+      ms[name] = chip_smoke.cuda_ms(fn, REPS, warmup=2)
 
     if args.profile:
       from torch.profiler import ProfilerActivity, profile
@@ -340,7 +327,8 @@ def main() -> int:
               k._fn = None
             cuda_build.load_all(list(touched.values()))
             prefixes = tuple(call_prefix[s] for s in touched)
-            result["ablated_ms"][name] = {c: cuda_ms(fn) for c, fn in calls.items()
+            result["ablated_ms"][name] = {c: chip_smoke.cuda_ms(fn, REPS, warmup=2)
+                                          for c, fn in calls.items()
                                           if c.startswith(prefixes)}
           finally:
             cuda_build.CSRC_DIR, cuda_build.BUILD_DIR = csrc, build_dir
