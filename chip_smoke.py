@@ -29,7 +29,9 @@ lines:
    cotangent image and weight: the backward kernel's slot rows against
    the plain backward on every slot, conic and antialias, with and
    without the heuristic and visibility rows; the segment-sum kernel
-   against the plain segment sum; two runs of each bitwise identical.
+   against the plain segment sum; two runs of each bitwise identical; the
+   one-pass reduction of the slot-major rows (the sort and segment_sum.cu's
+   point sums) bit for bit the gathered segment sums.
    Prints the relative max and p99.99 |diff| and both versions' times.
 2c. forward visibility against plain -- phase 2's scene, all four modes:
    the kernel's per-slot visibility against the plain version's, two runs
@@ -69,7 +71,8 @@ lines:
    a plain SGD update; checks one launch of each kernel per step and
    finite, non-zero gradients on all five Gaussians3D tensors; holds the
    backward kernel's slot rows on 64 seeded tiles against the plain
-   version and the segment-sum kernel over the whole frame; prints the
+   version, the segment-sum kernel over the whole frame, and the one-pass
+   reduction bit for bit the gathered segment sums; prints the
    median ms/step, its split, the kernels' and plain versions' times and
    peak device memory.
 6. training mode -- three `render_with_heuristics` steps at the same
@@ -139,13 +142,12 @@ lines:
    to the kernel's channels 2: on the same inputs. The forward and the
    backward rows (a seeded normal cotangent on all 34 channels) on 64
    seeded tiles against the plain versions, the backward bitwise the same
-   on a second run, the segment sums of its 40 rows over the whole frame
-   against plain; the reduction of 137 seeded slot rows (a Feature 3DGS
-   backward's 6 + 3 + 128) over the frame's slots, which gathers and sums
-   blocks of 48, 48 and 41 rows: three segment-sum launches, bit for bit
-   the one-shot gather and kernel launch over all 137, and within the
+   on a second run, the point sums of its 40 slot-major rows over the
+   whole frame against plain; the reduction of 137 seeded slot-major rows
+   (a Feature 3DGS backward's 6 + 3 + 128) over the frame's slots: one
+   point-sum launch, bit for bit the gathered segment sums, and within the
    segment-sum tolerance of the plain segment sum; ms/frame, ms/step, peak device memory, and each
-   kernel's, plain version's and (segment sum) `index_add_`'s time beside
+   kernel's, plain version's and (point sums) `index_add_`'s time beside
    its bound. Then at F = 17, 64 and 128 (seeded raw features, no depth):
    a serving render and a training step through `render_gaussians`,
    finite, the forward and backward on 64 seeded tiles against plain,
@@ -697,7 +699,7 @@ def trained_scene(args, dev, card, kernels, camera, g_image):
                                 n_tiles, size, False, False, False)
       print(f"  {name} mapping, {m.overlap_to_point.shape[0]} slots: backward "
             f"kernel {b_ms:.4f} ms, {bound_line(b, b_ms)}; reduction (sort + "
-            f"gather + segment sum) {r_ms:.4f} ms (CUDA events)")
+            f"point sums) {r_ms:.4f} ms (CUDA events)")
     del image, weight, slots, bw
 
   # training: five steps through TruncationGuard and five untruncated
@@ -1135,24 +1137,25 @@ def feature_field(args, dev, card, kernels, scene, camera):
     assert torch.equal(slots, backward.rasterize_backward(*bw)), "two runs differ"
     keys, order = torch.sort(mapping.overlap_to_point, stable=True)
     grouped = slots.index_select(1, order)
+    storage = slots.T      # the backward's slot-major rows, (K, R)
+    assert storage.is_contiguous()
     seg_err = check_segment_sums(
-        f"whole frame, segment-sum kernel vs plain ({slots.shape[0]} rows)",
-        reduce.segment_sums_cuda(grouped, mapping.point_offsets, n),
+        f"whole frame, point-sum kernel vs plain ({slots.shape[0]} rows)",
+        reduce.point_sums_cuda(storage, order, mapping.point_offsets, n).T,
         reduce.segment_sums_plain(keys, grouped, n))
 
     rows = 6 + 3 + 128
-    wide = torch.randn((rows, slots.shape[1]), generator=gen_g, device=dev)
+    wide = torch.randn((slots.shape[1], rows), generator=gen_g, device=dev).T
     reset_counts()
-    blocks = reduce_slots_by_point(wide, mapping)
-    assert counts()["segment_sum"] == 3, counts()
+    sums = reduce_slots_by_point(wide, mapping)
+    assert counts()["segment_sum"] == 1, counts()
     wide_grouped = wide.index_select(1, order)
-    assert torch.equal(blocks, reduce.segment_sums_cuda(
-        wide_grouped, mapping.point_offsets, n).T), "blocks differ from one shot"
-    check_segment_sums(f"whole frame, {rows} rows in blocks of 48, 48 and 41 "
-                       f"(3 segment-sum launches) vs plain, bit for bit the "
-                       f"one-shot kernel", blocks.T,
+    assert torch.equal(sums, reduce.segment_sums_cuda(
+        wide_grouped, mapping.point_offsets, n).T), "differs from the gathered sums"
+    check_segment_sums(f"whole frame, {rows} slot-major rows in one launch vs "
+                       f"plain, bit for bit the gathered segment sums", sums.T,
                        reduce.segment_sums_plain(keys, wide_grouped, n))
-    del wide, wide_grouped, blocks
+    del wide, wide_grouped, sums
 
     k = int(mapping.total_overlaps)
     work = bounds.raster_work(points, mapping, config, size)
@@ -1163,10 +1166,10 @@ def feature_field(args, dev, card, kernels, scene, camera):
     bwd_ms = cuda_ms(lambda: backward.rasterize_backward(*bw), reps=5)
     bwd_plain_ms = cuda_ms(lambda: backward.raster_backward_plain(*bw), reps=1)
     red_ms = cuda_ms(lambda: reduce_slots_by_point(slots, mapping), reps=5)
-    seg_ms = cuda_ms(lambda: reduce.segment_sums_cuda(
-        grouped, mapping.point_offsets, n), reps=20)
-    seg_plain_ms = cuda_ms(lambda: reduce.segment_sums_plain(keys, grouped, n),
-                           reps=5)
+    seg_ms = cuda_ms(lambda: reduce.point_sums_cuda(
+        storage, order, mapping.point_offsets, n), reps=20)
+    seg_plain_ms = cuda_ms(lambda: reduce.segment_sums_plain(
+        keys, slots.index_select(1, order), n), reps=5)
     sums = torch.zeros((n + 1, grouped.shape[0]), device=dev)
     keys64, rows_t = keys.to(torch.int64), grouped.T
     seg_library_ms = cuda_ms(lambda: sums.index_add_(0, keys64, rows_t), reps=5)
@@ -1179,11 +1182,11 @@ def feature_field(args, dev, card, kernels, scene, camera):
           f"{fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, "
           f"{bound_line(fwd_bound, fwd_ms)}; backward kernel {bwd_ms:.4f} ms "
           f"({slots.shape[0]} rows), plain {bwd_plain_ms:.4f} ms, "
-          f"{bound_line(bwd_bound, bwd_ms)}; reduction (sort + gather + "
-          f"segment sum) {red_ms:.4f} ms; segment-sum kernel {seg_ms:.4f} ms, "
-          f"plain {seg_plain_ms:.4f} ms, index_add_ {seg_library_ms:.4f} ms, "
-          f"{bound_line(seg_bound, seg_ms)}")
-    del slots, grouped, sums, rows_t, bw
+          f"{bound_line(bwd_bound, bwd_ms)}; reduction (sort + point sums) "
+          f"{red_ms:.4f} ms; point-sum kernel {seg_ms:.4f} ms, plain (gather "
+          f"and index_add_) {seg_plain_ms:.4f} ms, index_add_ alone "
+          f"{seg_library_ms:.4f} ms, {bound_line(seg_bound, seg_ms)}")
+    del slots, storage, grouped, sums, rows_t, bw
 
   # how the kernels' times grow with F: one serving render and one
   # training step through the entry points, then the kernels alone
@@ -1587,9 +1590,10 @@ def main() -> int:
   torch.backends.cuda.matmul.allow_tf32 = False   # the plain version's einsum
   torch.backends.cudnn.allow_tf32 = False
   dev = torch.device("cuda")
+  # segment_sum.cu's entry point on the main path: the one-pass reduction
   kernels = {"raster_forward": forward.RASTER_FORWARD,
              "raster_backward": backward.RASTER_BACKWARD,
-             "segment_sum": reduce.SEGMENT_SUM}
+             "segment_sum": reduce.POINT_SUMS}
 
   def reset_counts():
     for k in kernels.values():
@@ -1612,6 +1616,7 @@ def main() -> int:
   t0 = time.perf_counter()
   load_all(list(kernels.values()) + [sh_ops.SH_FORWARD, group_step.OPTIM_STEP])
   sh_ops.SH_BACKWARD.load()   # the same library
+  reduce.SEGMENT_SUM.load()   # the same library as the one-pass reduction
   print(f"[1 build] nvcc built the five sources for sm_90a in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
   for name, k in kernels.items():
@@ -1695,6 +1700,11 @@ def main() -> int:
     b = bounds.segment_sum_bound(grouped2.shape[0], k2, n2)
     print(f"    bitwise identical on a second run; kernel {k_ms:.4f} ms, "
           f"plain {p_ms:.4f} ms; {bound_line(b, k_ms)}")
+    one_pass = reduce_slots_by_point(slots2, mapping2)
+    assert torch.equal(one_pass, got.T), "one-pass reduction differs"
+    r_ms = cuda_ms(lambda: reduce_slots_by_point(slots2, mapping2), reps=20)
+    print(f"    one-pass reduction of the slot-major rows (sort + point sums) "
+          f"equal to the gathered segment sums bit for bit; {r_ms:.4f} ms")
 
     # ---- phase 2c: forward visibility against plain ----------------------
     print(f"[2c forward visibility vs plain] phase 2's scene, "
@@ -2016,6 +2026,8 @@ def main() -> int:
         "whole frame, segment-sum kernel vs plain",
         reduce.segment_sums_cuda(grouped, mapping.point_offsets, args.n),
         reduce.segment_sums_plain(keys, grouped, args.n))
+    assert torch.equal(reduce_slots_by_point(slots, mapping), reduce.segment_sums_cuda(
+        grouped, mapping.point_offsets, args.n).T), "one-pass reduction differs"
 
     fwd_step_ms = host_ms(
         lambda: tgr.render_gaussians(scene_now, camera, config), 5)
@@ -2042,7 +2054,7 @@ def main() -> int:
         f"{', '.join(f'{t:.3f}' for t in step_ms)})")
   print(f"  step split: forward render {fwd_step_ms:.3f} ms (host clock, "
         f"median of 5, no graph); backward raster kernel {bwd_ms:.4f} ms; "
-        f"reduction (sort + gather + segment sum) {red_ms:.4f} ms (CUDA "
+        f"reduction (sort + point sums) {red_ms:.4f} ms (CUDA "
         f"events); the rest -- autograd of projection and SH, the chain, "
         f"SGD and glue -- {step - fwd_step_ms - bwd_ms - red_ms:.3f} ms by "
         f"difference")

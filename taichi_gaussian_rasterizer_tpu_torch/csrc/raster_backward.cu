@@ -54,7 +54,11 @@
 // transpose_reduce (16 shuffles for up to 16 rows, 31 for up to 32, against
 // 5 a row before) and stores them with one shared store; the warps'
 // partials of the whole batch are then added in warp order and written
-// once, so a batch costs two block barriers however many slots it holds. A
+// once, so a batch costs two block barriers however many slots it holds.
+// The rows are stored slot-major, each slot's R values contiguous, so a
+// batch's sums fill one contiguous run of count * R floats, which the
+// block writes with neighbouring threads on neighbouring addresses; the
+// reduction (segment_sum.cu) then reads a slot's rows as one run. A
 // warp whose pixels have all stopped writes zero partials for the rest of
 // the batch and leaves it. The rows are computed in one fixed register
 // layout (point rows, the two heuristic rows when the instance has them,
@@ -76,7 +80,7 @@
 //                           num_tiles, tiles_x, tile_size, width, height, F,
 //                           alpha_threshold, clamp_max_alpha,
 //                           saturate_threshold, antialias, heuristic,
-//                           visibility, K, out (R,K) f32 zero-filled, stream)
+//                           visibility, out (K,R) f32 zero-filled, stream)
 // returns the cudaError_t of the launch (0 on success). Any tile_size >= 1
 // and F >= 1: a block is padded to whole warps, a tile larger than a
 // block is covered in pixel chunks (raster_common.cuh), and F > 16 takes
@@ -122,8 +126,7 @@ raster_backward_kernel(const float* __restrict__ points,
                        int num_tiles, int tiles_x, int tile_size, int width,
                        int height, int num_features, float alpha_threshold,
                        float clamp_max_alpha, float saturate_threshold,
-                       int visibility, long long k_stride,
-                       float* __restrict__ out) {
+                       int visibility, float* __restrict__ out) {
   constexpr int kNP = point_rows(kAntialias);
   constexpr int kHeur = kNP, kVis = kNP + 2, kFeat = kNP + 3;
   constexpr int kRows = padded_rows(kCap);
@@ -334,15 +337,16 @@ raster_backward_kernel(const float* __restrict__ points,
           }
         }
 
-        // the block's sums of the batch's slots, warps added in order
+        // the block's sums of the batch's slots, warps added in order: the
+        // slots' rows are one contiguous run of count * rows floats
         const int alive = __syncthreads_count(done != kAllDone);
-        for (int r = 0; r < rows; ++r) {
-          const float* part = s_part + s_rowmap[r] * part_stride;
-          for (int j = tid; j < count; j += threads) {
-            chunk_store(out + r * k_stride + base + j,
-                        block_slot_sum(part + j, n_warps, kRows * part_stride),
-                        chunk == 0);
-          }
+        float* run = out + static_cast<long long>(base) * rows;
+        for (int e = tid; e < count * rows; e += threads) {
+          const int j = e / rows, r = e - j * rows;
+          chunk_store(run + e,
+                      block_slot_sum(s_part + s_rowmap[r] * part_stride + j,
+                                     n_warps, kRows * part_stride),
+                      chunk == 0);
         }
         // slots past the point where every pixel stopped keep their zeros
         if (!alive) break;
@@ -366,8 +370,7 @@ cudaError_t launch(const float* points, const float* features,
                    int num_tiles, int tiles_x, int tile_size, int width,
                    int height, int num_features, float alpha_threshold,
                    float clamp_max_alpha, float saturate_threshold,
-                   int visibility, long long k_stride,
-                   float* out, cudaStream_t stream) {
+                   int visibility, float* out, cudaStream_t stream) {
   auto kernel = raster_backward_kernel<kAntialias, kHeuristic, kCap, kPPT, kChunked>;
   const int threads = tile_layout(tile_size, kPPT, max_block_threads(kPPT)).threads;
   const size_t smem = shared_bytes(threads, num_features, padded_rows(kCap),
@@ -380,7 +383,7 @@ cudaError_t launch(const float* points, const float* features,
       points, features, overlap_to_point, tile_ranges, tile_order, tile_counter,
       image, weight, grad_image, grad_weight, num_tiles, tiles_x, tile_size,
       width, height, num_features, alpha_threshold, clamp_max_alpha,
-      saturate_threshold, visibility, k_stride, out);
+      saturate_threshold, visibility, out);
   return cudaGetLastError();
 }
 
@@ -388,7 +391,7 @@ using LaunchFn = cudaError_t (*)(const float*, const float*, const int*,
                                  const int*, const int*, int*, const float*,
                                  const float*, const float*, const float*, int,
                                  int, int, int, int, int, float, float, float,
-                                 int, long long, float*, cudaStream_t);
+                                 int, float*, cudaStream_t);
 
 // the template instances, indexed by ((antialias * 2 + heuristic) * 3 +
 // layout) * 2 + chunked, layout 0: F <= 4 and 4 pixels a thread, 1: F <= 4
@@ -435,7 +438,8 @@ constexpr LaunchFn kLaunch[24] = {
 //    no slot reaches skipped), each lane adds its w times the pixel's
 //    cotangents (broadcast 16-byte loads) to its accumulators; each output
 //    belongs to one lane, summed in a fixed order and written once a batch,
-//    a channel's slots by consecutive lanes.
+//    staged in shared memory a slice at a time and written at the next
+//    barrier as one run of the slice's channels a slot.
 // No feature-row replay, no per-slot shuffle of the feature rows and no
 // cross-warp partials; every output is written by one thread, with no
 // atomics, so two runs are bitwise identical. Tensor cores did not pay: both
@@ -452,7 +456,11 @@ constexpr LaunchFn kLaunch[24] = {
 // memory once a tile. Shared memory: the staged points, a [32][36] feature
 // slice, the chunk's pixels' cotangents of a 36-channel slice, X
 // ([32][pixels + 1]) and the warps' point row partials: 97 KB a block at
-// 16x16 tiles, whatever F.
+// 16x16 tiles, whatever F (a slice's feature rows are staged over the
+// staged batch, which step 3 does not read). Two blocks an SM then leave
+// 60 KB of the SM's 256 KB to L1; with the feature rows in 4.7 KB of their
+// own, two blocks needed the 228 KB carveout, left 28 KB to L1 and took 21%
+// longer at F = 128 (NVIDIA H100 80GB HBM3, 700 W).
 constexpr int kWideRows = 16;            // point, heuristic and visibility rows
 // channels staged at a time: one slice of up to kWideFeatureSlice where F
 // fits (F = 34 in one, no restaging), else slices of kWideNarrowSlice
@@ -461,6 +469,7 @@ constexpr int kWideFeatureSlice = 36;
 constexpr int kWideNarrowSlice = 32;
 
 constexpr int kWideSliceStride = kWideFeatureSlice + 4;   // a pixel's staged cotangents
+constexpr int kWideRowStride = kWideFeatureSlice + 1;     // a slot's staged feature rows
 
 // The feature rows of lane `lane`'s slot over the chunk's pixels, eight at
 // a time, a group no slot of the batch reaches skipped: acc[4 h + i] +=
@@ -519,7 +528,7 @@ raster_backward_wide_kernel(const float* __restrict__ points,
                             int width, int height, int num_features,
                             float alpha_threshold, float clamp_max_alpha,
                             float saturate_threshold, int visibility,
-                            long long k_stride, float* __restrict__ out) {
+                            float* __restrict__ out) {
   constexpr int kPPT = kWidePPT;
   constexpr int kNP = point_rows(kAntialias);
   constexpr int kHeur = kNP, kVis = kNP + 2;
@@ -544,12 +553,18 @@ raster_backward_wide_kernel(const float* __restrict__ points,
   float* s_g = s_feat + kB * kWideFeatureSlice;      // [pixels][kWideSliceStride]
   float* s_x = s_g + pixels * kWideSliceStride;      // X: [kB][xs]
   float* s_part = s_x + kB * xs;                     // [n_warps][kRows][kB + 1]
+  // one slice's feature rows of the batch, over s_pt, s_ext and s_feat,
+  // which the feature rows' step reads none of
+  float* s_rows = smem;                              // [kB][kWideRowStride]
+  static_assert(kWideRowStride <= kStageStride + 2 + kWideFeatureSlice,
+                "the staged feature rows exceed the staged batch");
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const TileLayout layout = tile_layout(tile_size, kPPT, kWideMaxThreads);
   const float log_threshold = logf(alpha_threshold);
   const int rows = kNP + (kHeuristic ? 2 : 0) + (visibility ? 1 : 0);
+  const int pitch = rows + num_features;   // a slot's floats in `out`
   const int slice_w = num_features <= kWideFeatureSlice ? kWideFeatureSlice
                                                        : kWideNarrowSlice;
   const int slices = ceil_div(num_features, slice_w);
@@ -796,13 +811,13 @@ raster_backward_wide_kernel(const float* __restrict__ points,
         }
 
         const int alive = __syncthreads_count(done != kAllDone);
-        for (int r = 0; r < rows; ++r) {
-          const float* part = s_part + s_rowmap[r] * part_stride;
-          for (int j = tid; j < count; j += threads) {
-            chunk_store(out + r * k_stride + base + j,
-                        block_slot_sum(part + j, n_warps, kRows * part_stride),
-                        chunk == 0);
-          }
+        float* run = out + static_cast<long long>(base) * pitch;
+        for (int e = tid; e < count * rows; e += threads) {
+          const int j = e / rows, r = e - j * rows;
+          chunk_store(run + static_cast<long long>(j) * pitch + r,
+                      block_slot_sum(s_part + s_rowmap[r] * part_stride + j,
+                                     n_warps, kRows * part_stride),
+                      chunk == 0);
         }
 
         // 3. the feature rows W^T G, a slice of channels at a time (the
@@ -810,13 +825,27 @@ raster_backward_wide_kernel(const float* __restrict__ points,
         // channels of the slice, or eight where the slice has more groups
         // of four than the block has warps; over the chunk's pixels in
         // order, eight at a time, a group no slot of the batch reaches
-        // skipped
+        // skipped. A slice's sums are staged in s_rows and written at the
+        // next barrier, a run of nf floats a slot.
+        int staged = -1;   // the slice whose sums s_rows holds
+        auto store_feature_rows = [&]() {
+          const int f0 = staged * slice_w;
+          const int nf = min(slice_w, num_features - f0);
+          for (int e = tid; e < count * nf; e += threads) {
+            const int j = e / nf, c = e - j * nf;
+            chunk_store(run + static_cast<long long>(j) * pitch + rows + f0 + c,
+                        s_rows[j * kWideRowStride + c], chunk == 0);
+          }
+          staged = -1;
+        };
         for (int slice = slices - 1; slice >= 0; --slice) {
           const int f0 = slice * slice_w;
           const int nf = min(slice_w, num_features - f0);
-          if (resident != slice) {
-            __syncthreads();   // every warp has read the previous slice
-            stage_cotangents(slice);
+          if (resident != slice || staged >= 0) {
+            // every warp has read the previous slice and staged its sums
+            __syncthreads();
+            if (staged >= 0) store_feature_rows();
+            if (resident != slice) stage_cotangents(slice);
             __syncthreads();
           }
           const int quads = ceil_div(nf, 4) > n_warps ? 2 : 1;   // float4s a lane
@@ -833,13 +862,15 @@ raster_backward_wide_kernel(const float* __restrict__ points,
 #pragma unroll
               for (int f = 0; f < 8; ++f) {
                 if (f < 4 * quads && c0 + f < nf) {
-                  chunk_store(out + (rows + f0 + c0 + f) * k_stride + base + lane,
-                              acc[f], chunk == 0);
+                  s_rows[lane * kWideRowStride + c0 + f] = acc[f];
                 }
               }
             }
           }
+          staged = slice;
         }
+        __syncthreads();   // the last slice's sums are staged
+        store_feature_rows();
         // slots past the point where every pixel stopped keep their zeros
         if (!alive) break;
         __syncthreads();   // X has been read before the next batch's D
@@ -858,8 +889,7 @@ cudaError_t launch_wide(const float* points, const float* features,
                         int num_tiles, int tiles_x, int tile_size, int width,
                         int height, int num_features, float alpha_threshold,
                         float clamp_max_alpha, float saturate_threshold,
-                        int visibility, long long k_stride, float* out,
-                        cudaStream_t stream) {
+                        int visibility, float* out, cudaStream_t stream) {
   auto kernel = raster_backward_wide_kernel<kAntialias, kHeuristic>;
   const int threads = tile_layout(tile_size, kWidePPT, kWideMaxThreads).threads;
   const size_t smem = wide_shared_bytes(threads);
@@ -871,7 +901,7 @@ cudaError_t launch_wide(const float* points, const float* features,
       points, features, overlap_to_point, tile_ranges, tile_order, tile_counter,
       image, weight, grad_image, grad_weight, num_tiles, tiles_x, tile_size,
       width, height, num_features, alpha_threshold, clamp_max_alpha,
-      saturate_threshold, visibility, k_stride, out);
+      saturate_threshold, visibility, out);
   return cudaGetLastError();
 }
 
@@ -889,8 +919,7 @@ extern "C" int tgr_raster_backward(
     const float* grad_weight, int num_tiles, int tiles_x, int tile_size,
     int width, int height, int num_features, float alpha_threshold,
     float clamp_max_alpha, float saturate_threshold, int antialias,
-    int heuristic, int visibility, long long k_stride, float* out,
-    void* stream) {
+    int heuristic, int visibility, float* out, void* stream) {
   if (num_features < 1 || tile_size < 1) return cudaErrorInvalidValue;
   if (num_tiles == 0) return cudaSuccess;
   if (num_features > kRegisterFeatures) {
@@ -898,7 +927,7 @@ extern "C" int tgr_raster_backward(
         points, features, overlap_to_point, tile_ranges, tile_order,
         tile_counter, image, weight, grad_image, grad_weight, num_tiles,
         tiles_x, tile_size, width, height, num_features, alpha_threshold,
-        clamp_max_alpha, saturate_threshold, visibility, k_stride, out,
+        clamp_max_alpha, saturate_threshold, visibility, out,
         static_cast<cudaStream_t>(stream));
   }
   const int ppt = pixels_per_thread(tile_size, num_features);
@@ -909,6 +938,5 @@ extern "C" int tgr_raster_backward(
       points, features, overlap_to_point, tile_ranges, tile_order, tile_counter,
       image, weight, grad_image, grad_weight, num_tiles, tiles_x, tile_size,
       width, height, num_features, alpha_threshold, clamp_max_alpha,
-      saturate_threshold, visibility, k_stride, out,
-      static_cast<cudaStream_t>(stream));
+      saturate_threshold, visibility, out, static_cast<cudaStream_t>(stream));
 }

@@ -8,8 +8,11 @@ _backward_kernel`) or raises; on a CPU tensor it runs
 `raster_backward_plain`. Nothing falls back from the kernel to the plain
 version.
 
-Both return the JAX kernel's per-slot row layout, (R, K) over the
-mapping's K overlap slots, always at full precision (never bf16 pairs):
+Both return the JAX kernel's per-slot rows, (R, K) over the mapping's K
+overlap slots, always at full precision (never bf16 pairs), as a view of
+slot-major storage (K, R), each slot's R values contiguous: the layout the
+gradient reduction reads (`reduce.point_sums_by_order`). Indexed as (R, K),
+the values are the JAX kernel's:
 
 * point rows: 6 conic-transport rows d/d(mean_x, mean_y, qa, qb, qc,
   log_pa), or under antialias 7 eigen rows d/d(mean_x, mean_y, axis_x,
@@ -48,7 +51,7 @@ RASTER_BACKWARD = CudaKernel("raster_backward.cu", "tgr_raster_backward", """
     f32 grad_weight, int num_tiles, int tiles_x, int tile_size, int width,
     int height, int num_features, float alpha_threshold,
     float clamp_max_alpha, float saturate_threshold, int antialias,
-    int heuristic, int visibility, long long k_stride, f32 out""")
+    int heuristic, int visibility, f32 out""")
 
 # elements of one (tiles, pixels, points) field the plain version
 # materializes at a time; a dozen such fields are live at once
@@ -108,7 +111,8 @@ def raster_backward_plain(points: torch.Tensor, features: torch.Tensor,
   is its exclusive cumulative product and C a cumulative sum. `tile_ids`
   selects a subset of tiles (default: all); slots of other tiles hold 0.
 
-  Returns the (R, K) per-slot rows described in the module docstring.
+  Returns the (R, K) per-slot rows described in the module docstring, a
+  view of slot-major storage.
   """
   dtype, device = points.dtype, points.device
   f = features.shape[1]
@@ -145,7 +149,7 @@ def raster_backward_plain(points: torch.Tensor, features: torch.Tensor,
   e_t = (img_t * grad_t).sum(1)                             # (T, P)
 
   rows = live_grad_rows(f, compute_point_heuristic, vis_row, config.antialias)
-  out = points.new_zeros(rows, k)
+  out = points.new_zeros(k, rows)
   step = max(1, _PLAIN_BATCH_ELEMENTS // (p * mb))
   for b0 in range(0, len(tiles), step):
     t = tiles[b0:b0 + step]
@@ -201,8 +205,8 @@ def raster_backward_plain(points: torch.Tensor, features: torch.Tensor,
       sums.append(torch.einsum("bp,bpm->bm", inside_t[t], w))
     block = torch.cat([torch.stack(sums),                  # (R, B, M)
                        torch.einsum("bfp,bpm->fbm", g[:, :f], w)])
-    out[:, slot[live]] = block[:, live]
-  return out
+    out[slot[live]] = block[:, live].T
+  return out.T
 
 
 def raster_backward_cuda(points: torch.Tensor, features: torch.Tensor,
@@ -215,7 +219,7 @@ def raster_backward_cuda(points: torch.Tensor, features: torch.Tensor,
   F >= 1 (past 16 channels, one replay of each tile, the channel sums D
   and the feature rows as products of a batch), any tile_size >= 1 (a
   tile larger than a block is covered in pixel chunks). Returns the (R, K)
-  slot rows."""
+  slot rows, a view of the (K, R) storage the kernel writes."""
   check_raster_shapes(points, features, config)
   h, w = weight.shape
   for name, t, shape in (("image", image, (h, w, features.shape[1])),
@@ -227,15 +231,15 @@ def raster_backward_cuda(points: torch.Tensor, features: torch.Tensor,
   k = mapping.overlap_to_point.shape[0]
   rows = live_grad_rows(features.shape[1], compute_point_heuristic, vis_row,
                         config.antialias)
-  out = torch.zeros((rows, k), dtype=torch.float32, device=points.device)
+  out = torch.zeros((k, rows), dtype=torch.float32, device=points.device)
   counter = torch.empty(1, dtype=torch.int32, device=points.device)
   RASTER_BACKWARD.launch(
       points, features, mapping.overlap_to_point, mapping.tile_ranges,
       mapping.tile_order, counter, image, weight, grad_image, grad_weight,
       th * tw, tw, config.tile_size, w, h, features.shape[1],
       config.alpha_threshold, config.clamp_max_alpha, config.saturate_threshold,
-      config.antialias, compute_point_heuristic, vis_row, k, out)
-  return out
+      config.antialias, compute_point_heuristic, vis_row, out)
+  return out.T
 
 
 def rasterize_backward(points: torch.Tensor, features: torch.Tensor,
@@ -244,8 +248,9 @@ def rasterize_backward(points: torch.Tensor, features: torch.Tensor,
                        grad_image: torch.Tensor, grad_weight: torch.Tensor,
                        compute_point_heuristic: bool = False,
                        vis_row: bool = False) -> torch.Tensor:
-  """(R, K) per-slot gradient rows: the CUDA kernel for CUDA tensors, the
-  plain version for CPU tensors. A non-float32 CUDA input raises."""
+  """(R, K) per-slot gradient rows, a view of slot-major (K, R) storage:
+  the CUDA kernel for CUDA tensors, the plain version for CPU tensors. A
+  non-float32 CUDA input raises."""
   args = (points, features, mapping, config, image, weight, grad_image,
           grad_weight, compute_point_heuristic, vis_row)
   if points.is_cuda:

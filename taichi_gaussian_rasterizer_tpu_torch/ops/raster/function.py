@@ -8,8 +8,9 @@ CPU tests run the glue the card runs:
   version on CPU tensors;
 * backward: per-slot gradient rows from the backward kernel
   (`backward.py`) or its plain version, summed per point by
-  `reduce_slots_by_point` (a stable sort and gather in plain torch, then
-  the segment-sum kernel of `reduce.py` or its plain version), then the
+  `reduce_slots_by_point` (a stable sort of the slots by point in plain
+  torch, then the kernel of `reduce.py` that gathers each point's slot
+  rows through it and sums them, or its plain version), then the
   per-point chain from the conic transport rows to the packed (mean,
   axis, sigma, alpha) form.
 
@@ -53,7 +54,7 @@ from ...utils import tracing
 from ..mapper import TileMapping, cdiv, map_to_tiles, point_offsets
 from .backward import rasterize_backward
 from .forward import rasterize_forward
-from .reduce import segment_sums_by_sorted_key
+from .reduce import point_sums_by_order, slot_major
 
 
 class RasterOut(NamedTuple):
@@ -65,34 +66,25 @@ class RasterOut(NamedTuple):
                                                # truncation cropped a tile
 
 
-# slot rows gathered and summed at a time: a wide feature field's backward
-# writes 6 + F rows, whose gathered copy is made a block of rows at a time
-# instead of whole
-REDUCE_ROWS = 48
-
-
 def reduce_slots_by_point(slots: torch.Tensor,
                           mapping: TileMapping) -> torch.Tensor:
   """(R, K) per-overlap-slot rows -> (N, R) per-point sums.
 
   A stable sort of overlap_to_point groups each point's slots in slot
-  order, with the sentinel slots last; each block of REDUCE_ROWS rows is
-  gathered into that order and summed per point over the mapper's
-  point_offsets segments into its rows of the result, so that the
-  gathered copy holds one block and not all R rows (each sum is the same,
-  bit for bit). Spans `tgr.reduce.sort`: the sort, with counts `rows` (R)
-  and `chunks` (the blocks), then one a block's gather."""
+  order, with the sentinel slots last; each point's slots are then
+  gathered in that order and summed over the mapper's point_offsets
+  segments (`point_sums_by_order`: on the card one kernel over the
+  backward's slot-major rows). Spans `tgr.reduce.sort`: the sort, with
+  counts `rows` (R), `chunks` (1: every row at once) and `kernel_rows`
+  (the rows the kernel reduced from slot-major storage without a repack;
+  0 on the plain CPU path), then one around the gather and the sums."""
   r, n = slots.shape[0], mapping.point_sentinel
   with tracing.span("reduce.sort") as s:
-    s.count(rows=r, chunks=cdiv(r, REDUCE_ROWS))
+    s.count(rows=r, chunks=1,
+            kernel_rows=r if slots.is_cuda and slot_major(slots) else 0)
     keys, order = torch.sort(mapping.overlap_to_point, stable=True)
-  out = slots.new_empty(r, n)
-  for r0 in range(0, r, REDUCE_ROWS):
-    with tracing.span("reduce.sort"):
-      grouped = slots[r0:r0 + REDUCE_ROWS].index_select(1, order)
-    segment_sums_by_sorted_key(keys, grouped, mapping.point_offsets, n,
-                               out=out[r0:r0 + REDUCE_ROWS])
-  return out.T
+  with tracing.span("reduce.sort"):
+    return point_sums_by_order(keys, order, slots, mapping.point_offsets, n)
 
 
 def _chain_to_packed(points: torch.Tensor, per_point: torch.Tensor,

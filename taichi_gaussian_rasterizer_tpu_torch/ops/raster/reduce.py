@@ -1,13 +1,21 @@
-"""Segment sums of point-sorted slot rows: the CUDA kernel's wrapper and
-its plain PyTorch version (port of
-`taichi_gaussian_rasterizer_tpu.ops.raster.reduce`).
+"""Per-point sums of slot rows: the CUDA kernels' wrappers and their plain
+PyTorch versions (port of `taichi_gaussian_rasterizer_tpu.ops.raster.reduce`).
 
-`segment_sums_by_sorted_key` is the one entry point. On a CUDA tensor it
-launches the hand-written kernel `csrc/segment_sum.cu` (which replaces the
-TPU kernel `taichi_gaussian_rasterizer_tpu/ops/raster/reduce.py:
-_segment_sum_kernel`) or raises; on a CPU tensor it runs
-`segment_sums_plain`. Nothing falls back from the kernel to the plain
-version.
+Two entry points, each launching a hand-written kernel of
+`csrc/segment_sum.cu` (which replaces the TPU kernel
+`taichi_gaussian_rasterizer_tpu/ops/raster/reduce.py:_segment_sum_kernel`)
+on CUDA tensors, or raising, and running the plain version on CPU tensors.
+Nothing falls back from a kernel to its plain version.
+
+* `point_sums_by_order`, the gradient reduction: slot rows gathered
+  through the stable sort of the slots by point and summed per point; on
+  the card in one pass over slot-major rows (`tgr_point_sums`).
+* `segment_sums_by_sorted_key`, the JAX function's port: sums of rows
+  already sorted by point (`tgr_segment_sum`).
+
+Both kernels add each point's values one at a time in sorted order,
+starting from 0, so the first over slot rows equals the second over the
+same rows gathered into point order, bit for bit.
 
 Two options of the JAX function are not carried over: uint32 values read
 as bf16 pairs (transport packing for the TPU's sort payloads; the port's
@@ -26,6 +34,9 @@ from ...utils.cuda_build import CudaKernel
 SEGMENT_SUM = CudaKernel("segment_sum.cu", "tgr_segment_sum",
                          "f32 values, i32 offsets, int rows, long long k, "
                          "int n, f32 out")
+POINT_SUMS = CudaKernel("segment_sum.cu", "tgr_point_sums",
+                        "f32 storage, i64 order, i32 offsets, int rows, int n, "
+                        "f32 out")
 
 
 def segment_sums_plain(keys: torch.Tensor, values: torch.Tensor,
@@ -77,3 +88,48 @@ def segment_sums_by_sorted_key(keys: torch.Tensor, values: torch.Tensor,
     raise ValueError(f"no segment sum for device {values.device}")
   sums = segment_sums_plain(keys, values, n)
   return sums if out is None else out.copy_(sums)
+
+
+def slot_major(slots: torch.Tensor) -> bool:
+  """True where (R, K) slot rows are a view of slot-major (K, R) storage,
+  each slot's R values contiguous, as the backward kernel writes them."""
+  return slots.T.is_contiguous()
+
+
+def point_sums_cuda(storage: torch.Tensor, order: torch.Tensor,
+                    offsets: torch.Tensor, n: int) -> torch.Tensor:
+  """Launch `tgr_point_sums`: float32 slot-major storage (K, R), int64
+  order (K,), int32 offsets (N+1,); returns float32 (N, R)."""
+  if storage.ndim != 2 or order.shape != (storage.shape[0],):
+    raise ValueError(f"storage must be (K, R) and order (K,), got "
+                     f"{tuple(storage.shape)} and {tuple(order.shape)}")
+  if offsets.shape != (n + 1,):
+    raise ValueError(f"offsets must be (N+1,) = ({n + 1},), got "
+                     f"{tuple(offsets.shape)}")
+  out = torch.empty((n, storage.shape[1]), dtype=torch.float32,
+                    device=storage.device)
+  POINT_SUMS.launch(storage, order, offsets, storage.shape[1], n, out)
+  return out
+
+
+def point_sums_by_order(keys: torch.Tensor, order: torch.Tensor,
+                        slots: torch.Tensor, offsets: torch.Tensor,
+                        n: int) -> torch.Tensor:
+  """(N, R) per-point sums of (R, K) slot rows.
+
+  keys, order: the stable sort of the slots' point ids (sentinel == n
+  sorts last); offsets: (N+1,) int32 start of each point's segment of the
+  sorted order (the mapper's point_offsets). Row i is the sum of
+  slots[:, order[q]] over q in [offsets[i], offsets[i+1]), added in q
+  order from 0: sentinel slots are never summed, an empty segment gives 0.
+
+  On the card the kernel reads each point's slots through `order` from
+  slot-major storage (`slot_major`: the backward kernel's own layout; other
+  rows are repacked once); on the CPU the rows are gathered into point
+  order and summed by `segment_sums_plain`.
+  """
+  if slots.is_cuda:
+    return point_sums_cuda(slots.T.contiguous(), order, offsets, n)
+  if slots.device.type != "cpu":
+    raise ValueError(f"no point sums for device {slots.device}")
+  return segment_sums_plain(keys, slots.index_select(1, order), n).T

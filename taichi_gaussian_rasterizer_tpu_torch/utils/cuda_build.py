@@ -23,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -69,7 +70,9 @@ def build(source: str) -> tuple:
   if out.exists():
     return out, ""
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+  # one name a process and thread: two entry points of one source may build
+  # it at once
+  tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
   proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                         capture_output=True, text=True)
   if proc.returncode != 0:
@@ -81,14 +84,15 @@ def build(source: str) -> tuple:
 
 # A signature lists an entry point's arguments as "<type> <name>, ...": a
 # scalar's C type (int, long long, float, double), or a tensor's dtype (f32,
-# i32, u8, or real: the kernel's float type, float32 or float64, one for
+# i32, i64, u8, or real: the kernel's float type, float32 or float64, one for
 # every slot so marked) followed by "@<bytes>" where the entry point needs
 # that alignment and "?" where it takes NULL.
 _CTYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
            "float": ctypes.c_float, "double": ctypes.c_double}
-_DTYPES = {"f32": torch.float32, "i32": torch.int32, "u8": torch.uint8}
+_DTYPES = {"f32": torch.float32, "i32": torch.int32, "i64": torch.int64,
+           "u8": torch.uint8}
 _ARG = re.compile(r"\s*(?:(int|long long|float|double)"
-                  r"|(f32|i32|u8|real)(?:@(\d+))?(\?)?)\s+(\w+)\s*")
+                  r"|(f32|i32|i64|u8|real)(?:@(\d+))?(\?)?)\s+(\w+)\s*")
 
 
 class Slot(NamedTuple):

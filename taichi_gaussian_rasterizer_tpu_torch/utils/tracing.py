@@ -33,8 +33,9 @@ Spans of the port, and the counts they carry:
   tgr.raster.fwd    the blend's autograd forward: channels (F blended)
   tgr.raster.bwd    the blend's autograd backward
   tgr.reduce.sort   the gradient reduction's stable sort: rows (R), chunks
-                    (blocks of rows gathered apart); then one more span a
-                    block's gather
+                    (1), kernel_rows (the rows the CUDA kernel reduced from
+                    slot-major storage without a repack, 0 on the plain
+                    path); then one more span around the gather and sums
   tgr.project.bwd   from the end of tgr.raster.bwd to the last gradient
                     hook on the frame's Gaussians3D tensors (`tail`)
   tgr.optim.step    ParameterClass.step: elements (N * D over the groups

@@ -21,7 +21,9 @@ the same forward outputs and cotangents through both): per row, p99.9
 |plain| value. The two add the per-slot sums over pixels and the running
 sum C in different orders, and E - C cancels where a pixel's remaining
 weight is small. Segment sums: rtol 1e-5 (sums of a few slots, added in
-another order).
+another order). The one-pass reduction over slot-major rows: bit for bit
+the sort, the gather of the (R, K) rows into point order and the
+segment-sum kernel (both add each point's values in sorted order from 0).
 """
 
 import shutil
@@ -34,7 +36,8 @@ from taichi_gaussian_rasterizer_tpu_torch import RasterConfig
 from taichi_gaussian_rasterizer_tpu_torch.ops.mapper import longest_first, map_to_tiles
 from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
     backward, forward, probe_visit_chunks, rasterize_with_tiles, reduce,
-    reduce_slots_by_point, tiles)
+    reduce_slots_by_point, tiles, truncate_mapping)
+from taichi_gaussian_rasterizer_tpu_torch.utils import tracing
 
 import torch_port_scenes as scenes
 
@@ -200,6 +203,99 @@ def test_segment_sum_kernel_matches_plain(cuda_device):
   assert (got[:, counts == 0] == 0).all()
 
 
+def _gathered_segment_sums(slots, mapping):
+  """The reduction as it was composed before the one-pass kernel: the
+  stable sort, the gather of the (R, K) rows into point order, the
+  segment-sum kernel. (N, R)."""
+  _, order = torch.sort(mapping.overlap_to_point, stable=True)
+  return reduce.segment_sums_cuda(slots.index_select(1, order),
+                                  mapping.point_offsets,
+                                  mapping.point_sentinel).T
+
+
+def _mapping_with_empty_segments(device):
+  """A mapping with sentinel slots and points that own no slot (every
+  seventh point's alpha 0)."""
+  pts, depth, _ = _scene(device, 3000, (300, 200), 3)
+  pts[::7, 6] = 0.0
+  mapping = map_to_tiles(pts, depth, (300, 200), RasterConfig(tile_size=16))
+  segments = mapping.point_offsets[1:] - mapping.point_offsets[:-1]
+  assert (mapping.overlap_to_point == 3000).any() and (segments == 0).any()
+  return pts, mapping
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 9, 12, 137])
+def test_point_sums_equal_the_gathered_segment_sums(cuda_device, rows):
+  """Seeded slot-major rows of a mapping with sentinel slots and empty
+  segments: the one-pass kernel's (N, R) sums equal the gathered segment
+  sums bit for bit, empty segments give 0, one launch, two runs equal; a
+  row-major (R, K) input is repacked and gives the same sums."""
+  _, mapping = _mapping_with_empty_segments(cuda_device)
+  k, n = mapping.overlap_to_point.shape[0], mapping.point_sentinel
+  gen = torch.Generator(device=cuda_device).manual_seed(rows)
+  slots = torch.randn((k, rows), generator=gen, device=cuda_device).T
+  assert reduce.slot_major(slots)
+  before = reduce.POINT_SUMS.launch_count
+  got = reduce_slots_by_point(slots, mapping)
+  torch.cuda.synchronize()
+  assert reduce.POINT_SUMS.launch_count == before + 1
+  assert got.shape == (n, rows) and got.is_contiguous()
+  assert torch.equal(got, _gathered_segment_sums(slots, mapping))
+  segments = mapping.point_offsets[1:] - mapping.point_offsets[:-1]
+  assert (got[segments == 0] == 0).all() and (got[segments > 0] != 0).any()
+  assert torch.equal(got, reduce_slots_by_point(slots, mapping))
+  assert torch.equal(got, reduce_slots_by_point(slots.contiguous(), mapping))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [9, 137])
+def test_point_sums_on_a_truncated_mapping(cuda_device, rows):
+  """On a mapping cut by `truncate_mapping` (each tile's bin kept to its
+  saturation front), the one-pass sums equal the gathered segment sums
+  bit for bit."""
+  points, depth, feats = scenes.points2d(70, 3000, (200, 120),
+                                         sigma_range=(3.0, 10.0),
+                                         alpha_range=(0.75, 0.99))
+  pts, d = (scenes.to_torch(x, np.float32).to(cuda_device) for x in (points, depth))
+  config = RasterConfig(tile_size=16)
+  mapping = map_to_tiles(pts, d, (200, 120), config)
+  visit, cap = probe_visit_chunks(pts, mapping, config, margin_chunks=0)
+  cut, _, _ = truncate_mapping(mapping, visit, cap, config.points_per_chunk)
+  k = cut.overlap_to_point.shape[0]
+  assert k < mapping.overlap_to_point.shape[0]
+  gen = torch.Generator(device=cuda_device).manual_seed(rows)
+  slots = torch.randn((k, rows), generator=gen, device=cuda_device).T
+  got = reduce_slots_by_point(slots, cut)
+  assert torch.equal(got, _gathered_segment_sums(slots, cut))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_features", [3, 34])
+def test_backward_rows_reach_the_reduction_without_a_repack(cuda_device,
+                                                            n_features):
+  """The backward kernel's rows (the register and the wide instance) are
+  slot-major: the training step's reduction counts every row as the
+  kernel's (`kernel_rows` == `rows` of `tgr.reduce.sort`), and its sums
+  equal the gathered segment sums of the same rows bit for bit."""
+  config = RasterConfig(tile_size=16)
+  args = _backward_inputs(cuda_device, config, n_features=n_features)
+  slots = backward.rasterize_backward(*args[:3], config, *args[3:])
+  assert reduce.slot_major(slots)
+  assert torch.equal(reduce_slots_by_point(slots, args[2]),
+                     _gathered_segment_sums(slots, args[2]))
+  pts, f = args[0].clone().requires_grad_(), args[1].clone().requires_grad_()
+  size = (args[3].shape[1], args[3].shape[0])
+  with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+    out = rasterize_with_tiles(pts, f, args[2], size, config)
+    torch.autograd.grad((out.image * args[5]).sum(), [pts, f])
+    torch.cuda.synchronize()
+  sort = [r for r in tracing.records()
+          if r["name"] == "tgr.reduce.sort" and r["counts"]][-1]
+  assert sort["counts"] == {"rows": 6 + n_features, "chunks": 1,
+                            "kernel_rows": 6 + n_features}
+
+
 @pytest.mark.cuda
 def test_training_gradients_match_plain_autograd_on_card(cuda_device):
   """The autograd Function (kernels 1-3 and the chain) against autograd
@@ -231,11 +327,11 @@ def test_training_gradients_match_plain_autograd_on_card(cuda_device):
 
   counts = [k.launch_count for k in (forward.RASTER_FORWARD,
                                      backward.RASTER_BACKWARD,
-                                     reduce.SEGMENT_SUM)]
+                                     reduce.POINT_SUMS)]
   got = grads(kernels)
   assert [k.launch_count for k in (forward.RASTER_FORWARD,
                                    backward.RASTER_BACKWARD,
-                                   reduce.SEGMENT_SUM)] == [c + 1 for c in counts]
+                                   reduce.POINT_SUMS)] == [c + 1 for c in counts]
   for a, b in zip(got, grads(plain)):
     assert float((a - b).norm() / b.norm()) <= 1e-3
 
@@ -314,10 +410,10 @@ def test_forward_visibility_equals_the_sink_on_card(cuda_device):
   size = (200, 120)
   pts, depth, f = _scene(cuda_device, 3000, size, 3)
   mapping = map_to_tiles(pts, depth, size, config)
-  counts = (forward.RASTER_FORWARD.launch_count, reduce.SEGMENT_SUM.launch_count)
+  counts = (forward.RASTER_FORWARD.launch_count, reduce.POINT_SUMS.launch_count)
   out = rasterize_with_tiles(pts, f, mapping, size, config)
   assert (forward.RASTER_FORWARD.launch_count,
-          reduce.SEGMENT_SUM.launch_count) == (counts[0] + 1, counts[1] + 1)
+          reduce.POINT_SUMS.launch_count) == (counts[0] + 1, counts[1] + 1)
   vs = torch.zeros(3000, device=cuda_device, requires_grad=True)
   p = pts.clone().requires_grad_()
   rasterize_with_tiles(p, f, mapping, size, config,
@@ -379,7 +475,7 @@ def test_train_epoch_on_card_matches_cpu(cuda_device):
   g = random_2d_gaussians(torch.Generator().manual_seed(0), 500, size,
                           alpha_range=(0.7, 0.9))
   ref = fit.synthetic_target(size, device="cpu")
-  kernels = (forward.RASTER_FORWARD, backward.RASTER_BACKWARD, reduce.SEGMENT_SUM)
+  kernels = (forward.RASTER_FORWARD, backward.RASTER_BACKWARD, reduce.POINT_SUMS)
   before = [k.launch_count for k in kernels]
   card = fit.train_epoch(fit.make_parameter_class(g.to(cuda_device)),
                          ref.to(cuda_device), size, config, epoch_size=3)

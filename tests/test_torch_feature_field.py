@@ -13,8 +13,8 @@ nothing of the port, nothing of JAX):
   its norm);
 * the decoder alone, its resize up and down, against the plain one
   (float64, 1e-12) and gradcheck;
-* the reduction past one block of rows (R = 137) equals the one-shot
-  gather and sum bit for bit;
+* the reduction of the feature field's 137 rows equals the gather into
+  point order and the segment sum, bit for bit;
 * `point_features=None` renders what the render's own pieces render,
   bit for bit, with one raster launch of the colour's 3 channels;
 * the decoder's spans and counts, and the raster's and the reduction's
@@ -163,7 +163,6 @@ def test_chunked_reduction_equals_one_shot_bit_for_bit():
   k = mapping.overlap_to_point.shape[0]
   assert k > 0
   rows = 6 + 3 + 128
-  assert rows > function.REDUCE_ROWS
   slots = torch.randn((rows, k), generator=torch.Generator().manual_seed(2))
   got = function.reduce_slots_by_point(slots, mapping)
   keys, order = torch.sort(mapping.overlap_to_point, stable=True)
@@ -237,8 +236,9 @@ def test_spans_and_counts_under_a_profile():
   raster, = by["tgr.raster.fwd"]
   assert raster["counts"] == {"channels": 131}
   sorts = by["tgr.reduce.sort"]
-  assert len(sorts) == 1 + 3          # the sort, then each block's gather
-  assert sorts[0]["counts"] == {"rows": 137, "chunks": 3}
+  assert len(sorts) == 1 + 1          # the sort, then the gather and sums
+  # the plain CPU path: no row reduced by the kernel
+  assert sorts[0]["counts"] == {"rows": 137, "chunks": 1, "kernel_rows": 0}
   assert all(s["frame"] == raster["frame"] for s in sorts)
 
 

@@ -8,12 +8,14 @@ Frames, at 1M gaussians @2048x1536, with tiles of --tile-size pixels
 (default 16, RasterConfig()'s):
 * 3D: chip_smoke.py phases 3 and 5 (bench.py's recipe, RGB): the forward
   kernel without and with visibility, the backward kernel with 9 rows
-  (cotangent image seeded normal, zero weight cotangent) and the segment
-  sum of 9 seeded rows; the forward and the backward (10 rows) under the
-  antialiased pdf (bench.py's antialias row); the forward and the
-  backward of phase 10's feature field, 32 seeded raw channels and the
-  two depth channels (F = 34), and of 17, 64 and 128 seeded raw channels
-  (the wide instances);
+  (cotangent image seeded normal, zero weight cotangent), the segment sum
+  of 9 seeded rows and the gradient reduction (`reduce_slots_by_point`:
+  the sort and the per-point sums) of the backward's 9 rows; the forward
+  and the backward (10 rows) under the antialiased pdf (bench.py's
+  antialias row); the forward and the backward of phase 10's feature
+  field, 32 seeded raw channels and the two depth channels (F = 34), and
+  of 17, 64 and 128 seeded raw channels (the wide instances), and the
+  reduction of the backward's 134 rows at F = 128;
 * 2D: 1M random_2d_gaussians (seed 0) on the 2D trainer's frame
   (compute_point_heuristic, F = 3): the forward kernel and the backward
   kernel with the heuristic and visibility rows (12);
@@ -127,7 +129,7 @@ def main() -> int:
   import taichi_gaussian_rasterizer_tpu_torch as tgr
   from taichi_gaussian_rasterizer_tpu_torch.models import renderer2d
   from taichi_gaussian_rasterizer_tpu_torch.ops.raster import (
-      backward, forward, reduce)
+      backward, forward, reduce, reduce_slots_by_point)
   from taichi_gaussian_rasterizer_tpu_torch.utils import cuda_build
   from taichi_gaussian_rasterizer_tpu_torch.utils.random_data import (
       random_2d_gaussians)
@@ -139,6 +141,8 @@ def main() -> int:
              "raster_backward.cu": backward.RASTER_BACKWARD}
   call_prefix = {"raster_forward.cu": "forward_", "raster_backward.cu": "backward_"}
   cuda_build.load_all([*kernels.values(), reduce.SEGMENT_SUM])
+  if hasattr(reduce, "POINT_SUMS"):   # the one-pass reduction: the same library
+    reduce.POINT_SUMS.load()
   result = {"root": root, "card": chip_smoke.card_line(), "ms": {},
             "tile_size": args.tile_size,
             "ptxas": {k.source: [l.strip() for l in k.build_log.splitlines()
@@ -221,6 +225,8 @@ def main() -> int:
       bw2 = (packed, f2, mapping2, config2, image2, weight2, g_image2,
              torch.zeros_like(weight2), True, True)
 
+      slots = backward.rasterize_backward(*bw)
+      slots_128 = backward.rasterize_backward(*wide[128][1])
       calls = {
           "forward_3d": lambda: forward.rasterize_forward(
               points, features, mapping, SIZE, config),
@@ -229,6 +235,8 @@ def main() -> int:
           "backward_3d_9_rows": lambda: backward.rasterize_backward(*bw),
           "segment_sum_3d": lambda: reduce.segment_sums_cuda(
               grouped, mapping.point_offsets, N),
+          "reduce_3d_9_rows": lambda: reduce_slots_by_point(slots, mapping),
+          "reduce_3d_128": lambda: reduce_slots_by_point(slots_128, mapping),
           "forward_3d_antialias": lambda: forward.rasterize_forward(
               points, features, mapping, SIZE, config_aa),
           "backward_3d_antialias": lambda: backward.rasterize_backward(*bw_aa),
@@ -286,6 +294,8 @@ def main() -> int:
           "backward_3d_9_rows": bounds.backward_bound(
               w3, N, 3, k3, tiles_n, SIZE, False, False, False),
           "segment_sum_3d": bounds.segment_sum_bound(9, k3, N),
+          "reduce_3d_9_rows": bounds.segment_sum_bound(9, k3, N),
+          "reduce_3d_128": bounds.segment_sum_bound(134, k3, N),
           "forward_3d_antialias": bounds.forward_bound(
               w3a, N, 3, k3, tiles_n, SIZE, True),
           "backward_3d_antialias": bounds.backward_bound(
